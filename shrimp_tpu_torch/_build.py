@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -26,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# one lock per kernel, so that different kernels build side by side
+_name_locks: dict[str, threading.Lock] = {}
 # per kernel: seconds the build took (0.0 when the library was current)
 # and the compiler's report (registers, shared memory, spills)
 BUILD_SECS: dict[str, float] = {}
@@ -65,6 +68,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
         src = os.path.join(CSRC, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if os.path.exists(so) and \
@@ -73,8 +81,17 @@ def load(name: str) -> ctypes.CDLL:
         else:
             BUILD_SECS[name], BUILD_LOG[name] = _compile(src, so)
         lib = ctypes.CDLL(so)
-        _libs[name] = lib
+        with _lock:
+            _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """`load` several kernels at once: one nvcc process per source, all
+    started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))
 
 
 def check_launch(lib: ctypes.CDLL, kernel: str, rc: int) -> None:

@@ -2,7 +2,8 @@
 //
 // Replaces shrimp_tpu/ops/sw_vector_pallas.py::sw_score_batch_pallas (the
 // Pallas kernel body _make_kernel) together with the on-device window
-// gather of shrimp_tpu/pipeline/mapper.py::_p1_gather_score_ls.
+// gathers of shrimp_tpu/pipeline/mapper.py::_p1_gather_score_ls and, in
+// its colour-space form, ::_p1_gather_score_cs.
 //
 // Per (window, read) pair b it returns the local affine-gap SW best score
 // as int32: H is floored at 0; the A-gap (consumes genome) and the B-gap
@@ -11,6 +12,11 @@
 // READ_PAD = -2); a READ_PAD row leaves H and B unchanged.  An optional
 // row-0 plane row0[b, :] replaces the window for read row 0 (the
 // colour-space contract of the Pallas kernel); null when absent.
+// The colour-space gather (K2-CS) builds that row-0 plane itself: with a
+// letter plane ls_plane and per-pair primer letters initbp, the warp also
+// gathers the letter window at the same start and maps each letter l to
+// (0 <= l <= 3) ? l ^ initbp[b] : (l == GENOME_PAD ? GENOME_PAD : BASE_N),
+// so no [B, G] row-0 plane crosses to the device.
 //
 // What bounds it on an H100: integer ALU work and the latency of the
 // row-to-row dependency chain, not HBM.  A pair reads about G bytes of
@@ -44,6 +50,7 @@ namespace {
 constexpr int NEG_INF = -(1 << 28);
 constexpr int GENOME_PAD = -1;
 constexpr int READ_PAD = -2;
+constexpr int BASE_N = 15;
 constexpr unsigned FULL = 0xffffffffu;
 // shared memory one block may use without opting in
 constexpr size_t SMEM_BUDGET = 40 * 1024;
@@ -57,7 +64,8 @@ __global__ void sw_vector_kernel(
     const long long* __restrict__ lo, const int* __restrict__ wlen,
     const int* __restrict__ rid, const int* __restrict__ st,
     const int8_t* __restrict__ reads, int n_strands, int R,
-    const int8_t* __restrict__ row0, int B, int G, int Gs, Params p,
+    const int8_t* __restrict__ row0, const int8_t* __restrict__ ls_plane,
+    const int8_t* __restrict__ initbp, int B, int G, int Gs, Params p,
     int* __restrict__ out) {
   extern __shared__ int smem[];
   const int warps = blockDim.x >> 5;
@@ -68,22 +76,32 @@ __global__ void sw_vector_kernel(
 
   int* H = smem + (size_t)w * 2 * Gs;
   int* Bg = H + Gs;
-  int8_t* win =
-      reinterpret_cast<int8_t*>(smem + (size_t)warps * 2 * Gs) + (size_t)w * Gs;
+  const int nwin = ls_plane ? 2 : 1;
+  int8_t* win = reinterpret_cast<int8_t*>(smem + (size_t)warps * 2 * Gs) +
+                (size_t)w * nwin * Gs;
+  int8_t* win0 = win + Gs;  // the gathered row-0 plane (colour space)
 
   // gather the window: the same lane later reads column j, so no barrier
   // is needed between lanes, only the warp-wide one below
   const long long l0 = lo[b];
   const int wl = wlen[b];
+  const int ib = ls_plane ? initbp[b] : 0;
   for (int j = lane; j < G; j += 32) {
     const long long g = l0 + j;
-    win[j] = (j < wl && g >= 0 && g < plane_len) ? plane[g]
-                                                 : (int8_t)GENOME_PAD;
+    const bool in = j < wl && g >= 0 && g < plane_len;
+    win[j] = in ? plane[g] : (int8_t)GENOME_PAD;
+    if (ls_plane) {
+      const int l = in ? ls_plane[g] : GENOME_PAD;
+      win0[j] = (int8_t)((l >= 0 && l <= 3) ? (l ^ ib)
+                         : (l == GENOME_PAD ? GENOME_PAD : BASE_N));
+    }
     H[j] = 0;
     Bg[j] = NEG_INF;
   }
   const int8_t* rrow = reads + ((long long)rid[b] * n_strands + st[b]) * R;
-  const int8_t* g0 = row0 ? row0 + (long long)b * G : nullptr;
+  const int8_t* g0 = ls_plane ? win0
+                     : row0   ? row0 + (long long)b * G
+                              : nullptr;
   __syncwarp();
 
   int best = 0;
@@ -133,18 +151,21 @@ __global__ void sw_vector_kernel(
 // One launch over B pairs.  Window b is plane[lo[b] : lo[b] + G] with
 // columns >= wlen[b] (or outside the plane) read as GENOME_PAD; its read
 // row is reads[rid[b], st[b], :] of a [*, n_strands, R] int8 array.
-// row0 is null or an int8 [B, G] row-0 plane.  Scoring parameters are the
-// reference's signed scores (gap costs negative).  Runs on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// row0 is null or an int8 [B, G] row-0 plane.  ls_plane is null or the
+// letter plane (plane_len bytes) whose window, with the int8 [B] initbp,
+// makes the colour-space row-0 plane; row0 is then ignored.  Scoring
+// parameters are the reference's signed scores (gap costs negative).  Runs
+// on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sw_vector_launch(
     const void* plane, long long plane_len, const void* lo, const void* wlen,
     const void* rid, const void* st, const void* reads, int n_strands, int R,
-    const void* row0, int B, int G, int match, int mismatch, int a_gap_open,
-    int a_gap_extend, int b_gap_open, int b_gap_extend, void* out,
-    void* stream) {
+    const void* row0, const void* ls_plane, const void* initbp, int B, int G,
+    int match, int mismatch, int a_gap_open, int a_gap_extend,
+    int b_gap_open, int b_gap_extend, void* out, void* stream) {
   if (B <= 0) return 0;
   const int Gs = (G + 31) & ~31;
-  const size_t per_warp = (size_t)Gs * (2 * sizeof(int) + 1);
+  const size_t per_warp =
+      (size_t)Gs * (2 * sizeof(int) + (ls_plane ? 2 : 1));
   int warps = per_warp ? (int)(SMEM_BUDGET / per_warp) : 8;
   warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
   const size_t smem = per_warp * warps;
@@ -165,8 +186,8 @@ extern "C" int sw_vector_launch(
   sw_vector_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       (const int8_t*)plane, plane_len, (const long long*)lo,
       (const int*)wlen, (const int*)rid, (const int*)st,
-      (const int8_t*)reads, n_strands, R, (const int8_t*)row0, B, G, Gs, p,
-      (int*)out);
+      (const int8_t*)reads, n_strands, R, (const int8_t*)row0,
+      (const int8_t*)ls_plane, (const int8_t*)initbp, B, G, Gs, p, (int*)out);
   return (int)cudaGetLastError();
 }
 

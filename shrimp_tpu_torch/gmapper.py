@@ -1,19 +1,22 @@
 """gmapper-compatible command line for the PyTorch / CUDA port.
 
-The unpaired letter-space path of `shrimp_tpu.gmapper.main`
-(`gmapper/gmapper.c:main`): option parsing for the scoring, threshold,
-seed, window, strand, output and read-intake flags, the settings banner,
-the SAM header, read intake with trimming and filtering, the pipelined
-`Mapper.map_stream` loop, and the closing statistics block.  The option
-tables, usage text and logging are the JAX package's own.
+The unpaired path of `shrimp_tpu.gmapper.main` (`gmapper/gmapper.c:main`),
+letter space and colour space (`--mode cs`, or the program name
+`gmapper-cs`), gapped or gapless (`-U`, `-M mirna`): option parsing for
+the scoring, crossover, threshold, seed, window, strand, output and
+read-intake flags, the settings banner, the SAM header, read intake with
+trimming and filtering, the pipelined `Mapper.map_stream` loop, and the
+closing statistics block.  The option tables, usage text and logging are
+the JAX package's own.
 
 Mapping runs on the first CUDA device when one is present (the kernels),
 else on the CPU (their plain PyTorch versions).  Flags of paths not yet
-ported (paired, colour space, gapless, index save/load, genome shards,
-legacy output) exit with rc 1.
+ported (paired, index save/load, genome shards, legacy output) exit with
+rc 1.
 
 Usage:
     python -m shrimp_tpu_torch.gmapper [options] reads.fq genome.fa
+    python -m shrimp_tpu_torch.gmapper --mode cs [options] reads.csfq genome.fa
 """
 
 from __future__ import annotations
@@ -33,10 +36,6 @@ _NOT_PORTED = {
         "--half-paired", "--no-half-paired", "--no-improper-mappings",
         "--sam-r2", "--trim-first", "--trim-second", "-X",
         "--isize-histogram")},
-    **{o: "colour space" for o in (
-        "-x", "--crossover", "-v", "--vec-threshold", "-B", "--bfast",
-        "--indel-taboo-len")},
-    **{o: "gapless mapping" for o in ("-U", "--ungapped", "-M")},
     **{o: "index save/load" for o in (
         "-S", "--save", "-L", "--load", "--save-mmap", "--load-mmap",
         "--index-format")},
@@ -61,9 +60,6 @@ def main(argv: list[str] | None = None) -> int:
     for o, a in opts:
         if o == "--mode" and a in ("ls", "cs"):
             mode = a
-    if mode == "cs":
-        log("error: colour space is not yet ported to shrimp_tpu_torch")
-        return 1
     for o, _ in opts:
         if o in _NOT_PORTED:
             log(f"error: option {o} ({_NOT_PORTED[o]}) is not yet ported "
@@ -81,8 +77,11 @@ def main(argv: list[str] | None = None) -> int:
     from shrimp_tpu.utils import telemetry
     from shrimp_tpu_torch.pipeline.mapper import Mapper
 
-    cfg = MapperConfig(colour_space=False, params=SWParams.letter_space(),
-                       qual_delta=64)
+    colour = mode == "cs"
+    cfg = MapperConfig(colour_space=colour,
+                       params=(SWParams.colour_space() if colour
+                               else SWParams.letter_space()),
+                       qual_delta=(33 if colour else 64))
     cfg.sam_unaligned = False
 
     seed_specs: list[str] | None = None
@@ -94,7 +93,9 @@ def main(argv: list[str] | None = None) -> int:
     batch_size = 2048
     un_file = al_file = None
     progress = 100000
-    thresholds = {"r": 55.0, "h": 50.0}
+    thresholds = {"r": 55.0, "v": 47.0 if colour else 50.0, "h": 50.0}
+    vec_threshold_set = False
+    mirna = False
     y_proj_hist = False
     d_stats = False
     trim_front = trim_end = 0
@@ -122,7 +123,7 @@ def main(argv: list[str] | None = None) -> int:
     def _usage_state():
         return {
             "gapless": cfg.gapless, "global": cfg.global_alignment,
-            "trim_illumina": trim_illumina,
+            "trim_illumina": trim_illumina, "bfast": cfg.bfast,
             "Cflag": cfg.strand_mask == 2, "Fflag": cfg.strand_mask == 1,
             "Qflag": True, "Tflag": cfg.rev_tiebreak, "Yflag": y_proj_hist,
             "hash_filter_calls": not no_hash_filter_calls,
@@ -168,13 +169,29 @@ def main(argv: list[str] | None = None) -> int:
         elif o in ("-f", "--ext-q"):
             score_assignments.append(("b_gap_extend", int(a)))
             user_score_flags.add("b_gap_extend")
-        elif o in ("-r", "--cmv-threshold", "-h", "--full-threshold"):
+        elif o in ("-x", "--crossover"):
+            if not colour:
+                # CS-only option table (DEF_COLOUR_SPACE_OPTIONS,
+                # gmapper-defaults.h:161-167): gmapper-ls rejects it
+                log("error: -x/--crossover is a colour-space option")
+                return 1
+            score_assignments.append(("crossover", int(a)))
+        elif o in ("-r", "--cmv-threshold", "-v", "--vec-threshold",
+                   "-h", "--full-threshold"):
             try:
                 val = (float(a[:-1]) if a.endswith("%") else -float(a))
             except ValueError:
                 log(f"error: invalid threshold [{a}]")
                 return 1
-            thresholds["r" if o in ("-r", "--cmv-threshold") else "h"] = val
+            key = ("r" if o in ("-r", "--cmv-threshold")
+                   else "v" if o in ("-v", "--vec-threshold") else "h")
+            if key == "v" and not colour:
+                # CS-only option table (DEF_COLOUR_SPACE_OPTIONS)
+                log("error: -v/--vec-threshold is a colour-space option")
+                return 1
+            thresholds[key] = val
+            if key == "v":
+                vec_threshold_set = True
         elif o in ("-N", "--threads"):
             threads = int(a)
         elif o in ("-K", "--thread-chunk"):
@@ -190,8 +207,47 @@ def main(argv: list[str] | None = None) -> int:
                 log("error: -C and -F are mutually exclusive")
                 return 1
             cfg.strand_mask = 1
+        elif o in ("-U", "--ungapped"):
+            # -U also kills gap opens, anchors, and the SW cache display
+            # flag (gmapper.c:2055-2060)
+            cfg.gapless = True
+            cfg.anchor_width = 0
+            score_assignments.append(("a_gap_open", -255))
+            score_assignments.append(("b_gap_open", -255))
+            no_hash_filter_calls = True
+        elif o in ("-B", "--bfast"):
+            if not colour:
+                log("error: --bfast is a colour-space option")
+                return 1
+            cfg.bfast = True
         elif o == "--trim-illumina":
+            if colour:
+                # LS-only option table (DEF_LETTER_SPACE_OPTIONS)
+                log("error: --trim-illumina is a letter-space option")
+                return 1
             trim_illumina = True
+        elif o == "-M":
+            # set_mode_from_string accepts only "mirna"; anything else —
+            # including ls/cs — is rejected (gmapper.c:1495-1516,2119-2129)
+            for tok in a.split(","):
+                if tok != "mirna":
+                    log(f"error: unrecognized mode ({tok})")
+                    return 1
+                mirna = True
+                # full set_mode_from_string flag bundle (gmapper.c:1497-1511)
+                use_hashing = True
+                cfg.gapless = True
+                cfg.anchor_width = 0
+                score_assignments.append(("a_gap_open", -255))
+                score_assignments.append(("b_gap_open", -255))
+                cfg.match_mode_unpaired = 1
+                match_mode_set = True
+                cfg.window_len = 100.0
+                cfg.global_alignment = False
+                cfg.compute_mapping_qualities = False
+                no_hash_filter_calls = True
+        elif o == "--indel-taboo-len":
+            cfg.indel_taboo_len = int(a)
         elif o in ("-Q", "--fastq"):
             fastq = True
         elif o in ("-T", "--rev-tiebreak"):
@@ -249,6 +305,9 @@ def main(argv: list[str] | None = None) -> int:
                 log(f"error: invalid minimum average quality value ({a})")
         elif o == "--trim-front":
             trim_front = int(a)
+            if colour:
+                log("--trim-front cannot be used in colour space mode!")
+                return 1
             if trim_front < 0:
                 log("--trim-front value must be positive")
                 return 1
@@ -302,6 +361,8 @@ def main(argv: list[str] | None = None) -> int:
     if score_updates:
         cfg.params = cfg.params.with_(**score_updates)
     cfg.window_gen_threshold = thresholds["r"]
+    if vec_threshold_set:
+        cfg.sw_vect_threshold = thresholds["v"]
     cfg.sw_full_threshold = thresholds["h"]
 
     # cross-option validation (gmapper.c:2322-2500)
@@ -309,6 +370,10 @@ def main(argv: list[str] | None = None) -> int:
         log("note: mapping qualities are not available in local alignment "
             "mode; disabling them")
         cfg.compute_mapping_qualities = False
+    if cfg.global_alignment and cfg.gapless:
+        log("error: cannot use global (or bfast) and ungapped mode at the "
+            "same time!")
+        return 1
     if cfg.window_len >= 0 and cfg.window_len < 100.0:
         log("error: window length < 100% of read length")
         return 1
@@ -322,12 +387,15 @@ def main(argv: list[str] | None = None) -> int:
     if not 1 <= mm <= 2:
         log(f"error: invalid match mode [pair_mode=0;match_mode={mm}]")
         return 1
+    if mirna and seed_specs is None and not seed_weight:
+        # default mirna seed set only when none given (gmapper.c:2375-2379)
+        seed_specs = seedmod.MIRNA_SEEDS
 
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     log("--------------------------------------------------"
         "------------------------------")
-    log(f"shrimp-tpu: [LETTER SPACE] gmapper v{VERSION} (SHRiMP2-compatible)"
-        f", PyTorch port on {device.type}")
+    log(f"shrimp-tpu: [{'COLOUR' if colour else 'LETTER'} SPACE] gmapper "
+        f"v{VERSION} (SHRiMP2-compatible), PyTorch port on {device.type}")
     log("--------------------------------------------------"
         "------------------------------")
 
@@ -363,8 +431,8 @@ def main(argv: list[str] | None = None) -> int:
         compute_mapping_qualities=cfg.compute_mapping_qualities,
         all_contigs=cfg.all_contigs,
         single_best_mapping=cfg.single_best_mapping,
-        colour_space=False, params=cfg.params,
-        probs=ScoreProbs.from_scores(cfg.params, False),
+        colour_space=colour, params=cfg.params,
+        probs=ScoreProbs.from_scores(cfg.params, colour),
         option_set_printers=[_print_option_set])
     contigs = []
     for gf in genome_files:
@@ -379,7 +447,7 @@ def main(argv: list[str] | None = None) -> int:
         max_w = (12 if use_hashing
                  else max(s.weight for s in seed_set.seeds))
         cfg.list_cutoff = max(1000, (100 * total_len) // (4 ** max_w))
-    idx = gindex.build_index(contigs, seed_set, colour_space=False)
+    idx = gindex.build_index(contigs, seed_set, colour_space=colour)
     if cfg.list_cutoff != 0xFFFFFFFF:
         idx.trim(cfg.list_cutoff)
     log("Loaded Genome")     # exact text (genome.c:1180)
@@ -434,7 +502,7 @@ def main(argv: list[str] | None = None) -> int:
                 # the reference trims qual with the SEQ-length loop bound
                 # (trim_read, gmapper.c:265-285)
                 rec.qual = rec.qual[trim_front:trim_front + keep]
-        if trim_illumina and rec.qual:
+        if trim_illumina and not colour and rec.qual:
             # trim trailing Illumina 'B' qualities (gmapper.c:442-455)
             n = len(rec.qual)
             while n > 0 and rec.qual[n - 1] == "B":
@@ -458,12 +526,13 @@ def main(argv: list[str] | None = None) -> int:
                     sys.exit(1)
         low_qv = False
         if rec.qual and not cfg.ignore_qvs and min_avg_qv >= 0:
-            # integer sum / integer read_len — gmapper.c:458-500
+            # integer sum / integer read_len (= strlen(seq): one longer
+            # than qual for CS primer-base reads) — gmapper.c:458-500
             total = sum(ord(c) - cfg.qual_delta for c in rec.qual)
             rl = max(len(rec.seq), 1)
             avg = total // rl if total >= 0 else -((-total) // rl)
             low_qv = avg < min_avg_qv
-        rlen = len(rec.seq)
+        rlen = len(rec.seq) - (1 if colour else 0)
         if rlen > cfg.longest_read_len or low_qv:
             # exact intake-drop warnings (gmapper.c:499-511): the
             # smaller-than-seed branch wins when both apply; the low-qv
@@ -538,7 +607,7 @@ def main(argv: list[str] | None = None) -> int:
     on_card = device.type == "cuda"
     telemetry.print_statistics(
         log, mapper.tel,
-        colour_space=False,
+        colour_space=colour,
         load_genome_secs=load_genome_secs,
         mapping_secs=dt,
         nreads=n_reads + n_dropped_intake,

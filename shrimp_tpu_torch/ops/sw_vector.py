@@ -14,8 +14,12 @@ Two versions of the same function:
     it runs for CPU tensors only;
   * the CUDA kernel `csrc/sw_vector.cu` (K1 with the window gather K2
     fused in), through `p1_gather_score_ls_cuda` (windows gathered from
-    the resident genome plane) and `sw_score_batch_cuda` (windows given).
-`p1_gather_score_ls` picks by the device of the genome plane.
+    the resident genome plane), `p1_gather_score_cs_cuda` (colour space:
+    colour and letter windows gathered from the resident fw||rc planes,
+    the row-0 plane made in the kernel) and `sw_score_batch_cuda`
+    (windows given).
+`p1_gather_score_ls` and `p1_gather_score_cs` pick by the device of the
+genome plane; `p1_gather_score_cs_plain` is the plain colour-space form.
 """
 
 from __future__ import annotations
@@ -31,9 +35,12 @@ NEG_INF = -(1 << 28)
 
 GENOME_PAD = -1
 READ_PAD = -2
+BASE_N = 15
 
-# launches of the sw_vector kernel (both wrappers)
+# launches of the sw_vector kernel: letter-space and given-window
+# wrappers, and the colour-space gather (K2-CS) apart
 LAUNCHES = _build.LaunchCounter()
+CS_LAUNCHES = _build.LaunchCounter()
 
 
 def sw_score_batch(genome: torch.Tensor, read: torch.Tensor,
@@ -100,14 +107,44 @@ def p1_gather_score_ls_plain(plane, lo, wlen, rid, st, reads2, G: int,
     outside the plane) read as GENOME_PAD; its read row is
     reads2[rid[c], st[c]]."""
     _build.require_cpu(plane, lo, wlen, rid, st, reads2)
+    win = _gather(plane, lo, wlen, G)
+    rb = reads2[rid.to(torch.int64), st.to(torch.int64)]
+    return sw_score_batch(win, rb, params)
+
+
+def _gather(plane, lo, wlen, G: int) -> torch.Tensor:
+    """plane[lo[c] : lo[c] + G] per row, GENOME_PAD at columns >= wlen[c]
+    or outside the plane."""
     cols = torch.arange(G, dtype=torch.int64)
     idx = lo.to(torch.int64)[:, None] + cols
     inside = (idx >= 0) & (idx < plane.shape[0]) \
         & (cols < wlen.to(torch.int64)[:, None])
-    win = torch.where(inside, plane[idx.clamp(0, max(plane.shape[0] - 1, 0))],
-                      torch.tensor(GENOME_PAD, dtype=torch.int8))
-    rb = reads2[rid.to(torch.int64), st.to(torch.int64)]
-    return sw_score_batch(win, rb, params)
+    return torch.where(inside,
+                       plane[idx.clamp(0, max(plane.shape[0] - 1, 0))],
+                       torch.tensor(GENOME_PAD, dtype=torch.int8))
+
+
+def p1_gather_score_cs_plain(cs_cat, ls_cat, lo, wlen, rid, ist, initbp,
+                             reads2, G: int, params: SWParams) -> torch.Tensor:
+    """Colour-space window gather + pass-1 score, plain version (CPU
+    tensors).
+
+    cs_cat / ls_cat are the fw||rc colour and letter planes; window c is
+    cut from both at lo[c] (columns >= wlen[c] read GENOME_PAD).  Read row 0
+    scores against the letter window mapped through the read's primer:
+    l ^ initbp[c] for letters 0-3, GENOME_PAD kept, anything else BASE_N
+    (lstocs, sw-vector.c:111-147)."""
+    _build.require_cpu(cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2)
+    win_cs = _gather(cs_cat, lo, wlen, G)
+    win_ls = _gather(ls_cat, lo, wlen, G)
+    row0 = torch.where(
+        (win_ls >= 0) & (win_ls <= 3),
+        win_ls ^ initbp.to(torch.int8)[:, None],
+        torch.where(win_ls == GENOME_PAD,
+                    torch.tensor(GENOME_PAD, dtype=torch.int8),
+                    torch.tensor(BASE_N, dtype=torch.int8)))
+    rb = reads2[rid.to(torch.int64), ist.to(torch.int64)]
+    return sw_score_batch(win_cs, rb, params, row0)
 
 
 # ---------------------------------------------------------------------------
@@ -122,14 +159,14 @@ def _lib() -> ctypes.CDLL:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sw_vector_launch.restype = ctypes.c_int
         lib.sw_vector_launch.argtypes = [
-            vp, ll, vp, vp, vp, vp, vp, i, i, vp, i, i,
+            vp, ll, vp, vp, vp, vp, vp, i, i, vp, vp, vp, i, i,
             i, i, i, i, i, i, vp, vp]
         _LIB = lib
     return _LIB
 
 
 def _launch(plane, lo, wlen, rid, st, reads, row0, G: int,
-            params: SWParams) -> torch.Tensor:
+            params: SWParams, ls_plane=None, initbp=None) -> torch.Tensor:
     dev = plane.device
     if dev.type != "cuda":
         raise ValueError(f"the sw_vector kernel needs CUDA tensors; got {dev}")
@@ -146,6 +183,14 @@ def _launch(plane, lo, wlen, rid, st, reads, row0, G: int,
         if tuple(row0.shape) != (B, G):
             raise ValueError(f"genome_row0 is {tuple(row0.shape)}, "
                              f"expected {(B, G)}")
+    if ls_plane is not None:
+        _build.check_tensor("ls_plane", ls_plane, torch.int8, 1, dev)
+        if ls_plane.shape[0] != plane.shape[0]:
+            raise ValueError("ls_plane and the colour plane differ in length")
+        _build.check_tensor("initbp", initbp, torch.int8, 1, dev)
+        if initbp.shape[0] != B:
+            raise ValueError(f"initbp has {initbp.shape[0]} rows, "
+                             f"expected {B}")
     if G < 0:
         raise ValueError(f"G must be >= 0, got {G}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -159,11 +204,13 @@ def _launch(plane, lo, wlen, rid, st, reads, row0, G: int,
             plane.data_ptr(), plane.shape[0], lo.data_ptr(),
             wlen.data_ptr(), rid.data_ptr(), st.data_ptr(),
             reads.data_ptr(), reads.shape[1], reads.shape[2],
-            None if row0 is None else row0.data_ptr(), B, G,
+            None if row0 is None else row0.data_ptr(),
+            None if ls_plane is None else ls_plane.data_ptr(),
+            None if initbp is None else initbp.data_ptr(), B, G,
             p.match, p.mismatch, p.a_gap_open, p.a_gap_extend,
             p.b_gap_open, p.b_gap_extend, out.data_ptr(), stream)
     _build.check_launch(lib, "sw_vector", rc)
-    LAUNCHES.add()
+    (LAUNCHES if ls_plane is None else CS_LAUNCHES).add()
     return out
 
 
@@ -175,6 +222,16 @@ def p1_gather_score_ls_cuda(plane, lo, wlen, rid, st, reads2, G: int,
     starts; wlen/rid/st int32 [C]; reads2 int8 [B, 2, R].  Returns int32
     [C] on the plane's device."""
     return _launch(plane, lo, wlen, rid, st, reads2, None, G, params)
+
+
+def p1_gather_score_cs_cuda(cs_cat, ls_cat, lo, wlen, rid, ist, initbp,
+                            reads2, G: int, params: SWParams) -> torch.Tensor:
+    """Fused colour-space window gather + pass-1 score on the card (one
+    launch): cs_cat / ls_cat int8 [2L + pad] resident fw||rc planes; lo
+    int64 [C]; wlen/rid/ist int32 [C]; initbp int8 [C]; reads2 int8
+    [B, 2, R].  The row-0 plane is made in the kernel.  Returns int32 [C]."""
+    return _launch(cs_cat, lo, wlen, rid, ist, reads2, None, G, params,
+                   ls_plane=ls_cat, initbp=initbp)
 
 
 def sw_score_batch_cuda(genome: torch.Tensor, read: torch.Tensor,
@@ -206,3 +263,14 @@ def p1_gather_score_ls(plane, lo, wlen, rid, st, reads2, G: int,
                                        params)
     return p1_gather_score_ls_plain(plane, lo, wlen, rid, st, reads2, G,
                                     params)
+
+
+def p1_gather_score_cs(cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2,
+                       G: int, params: SWParams) -> torch.Tensor:
+    """Counterpart of `shrimp_tpu.pipeline.mapper._p1_gather_score_cs`:
+    the fused kernel for CUDA tensors, the plain version for CPU ones."""
+    if cs_cat.device.type == "cuda":
+        return p1_gather_score_cs_cuda(cs_cat, ls_cat, lo, wlen, rid, ist,
+                                       initbp, reads2, G, params)
+    return p1_gather_score_cs_plain(cs_cat, ls_cat, lo, wlen, rid, ist,
+                                    initbp, reads2, G, params)

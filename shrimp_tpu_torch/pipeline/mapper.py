@@ -1,24 +1,30 @@
-"""The end-to-end unpaired letter-space mapping funnel (L4), the
-counterpart of `shrimp_tpu/pipeline/mapper.py`.
+"""The end-to-end unpaired mapping funnel (L4), letter and colour space,
+the counterpart of `shrimp_tpu/pipeline/mapper.py`.
 
 Replicates `gmapper/mapping.c:handle_read` (:1791-1868) for a whole batch
 of reads at once:
 
-  candidates (native C, host)  →  pass 1 vector-SW filter (device)
+  candidates (native C, host)  →  pass 1 vector-SW filter, or the gapless
+                                  diagonal score of -U / -M mirna (device)
                                →  window-overlap suppression + top-k (host)
-                               →  pass 2 full SW + traceback (device)
-                               →  posterior / threshold / dedup / top-k
+                               →  pass 2 full SW + traceback: 3-state in
+                                  letter space, 4-layer in colour space
+                                  (device)
+                               →  [colour space: posterior HMM post_sw]
+                                  posterior / threshold / dedup / top-k
                                   → MQV → SAM (host)
 
 The host NumPy and native-C logic is the JAX package's, copied line for
-line because it is what makes the SAM bytes exact.  Only the two device
-calls differ: pass 1 goes through `ops.sw_vector` and pass 2 through
-`ops.sw_full`.  Pass 1 gathers every window from the genome plane that
-stays resident on the device (`DeviceIndex`); on a CUDA device the
-gather is fused into the kernel, on the CPU the plain versions run.
+line because it is what makes the SAM bytes exact.  Only the device calls
+differ: pass 1 goes through `ops.sw_vector` or `ops.sw_gapless`, pass 2
+through `ops.sw_full` or `ops.sw_full_cs`.  The vector pass 1 gathers
+every window from planes that stay resident on the device
+(`DeviceIndex`); on a CUDA device the gather is fused into the kernel, on
+the CPU the plain versions run.  The gapless diagonals are gathered on
+the host, as in the JAX package.
 
-Out of this slice, and refused with NotImplementedError: colour space,
-gapless pass 1, on-device candidates and paired mapping.
+Out of this slice, and refused with NotImplementedError: on-device
+candidates and paired mapping.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from shrimp_tpu.pipeline import candidates_batch as cb
 from shrimp_tpu.pipeline.options import (MapperConfig, ReadMappingOptions,
                                          abs_or_pct, is_absolute)
 from shrimp_tpu.utils import telemetry
-from shrimp_tpu_torch.ops import sw_full, sw_vector
+from shrimp_tpu_torch.ops import sw_full, sw_full_cs, sw_gapless, sw_vector
 
 # bytes of GENOME_PAD appended to the resident device plane (the JAX
 # package's layout, kept so the two planes are byte-identical)
@@ -53,6 +59,30 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _reverse_complement_plane(index: GenomeIndex) -> np.ndarray:
+    """The reverse-complement letter plane, contig by contig at the same
+    offsets (genome_contigs_rc, genome.c:1107)."""
+    parts = []
+    for c in range(index.num_contigs):
+        lo = int(index.contig_offsets[c])
+        hi = lo + int(index.contig_len[c])
+        parts.append(dna.reverse_complement(index.genome[lo:hi]))
+    return (np.concatenate(parts).astype(np.int8)
+            if parts else np.zeros(0, np.int8))
+
+
+def _colour_plane_rc(index: GenomeIndex, genome_rc: np.ndarray) -> np.ndarray:
+    """Colour translation of the reverse-complement letter plane, contig by
+    contig (genome_cs_contigs_rc, genome.c:1098-1119)."""
+    parts = []
+    for c in range(index.num_contigs):
+        lo = int(index.contig_offsets[c])
+        hi = lo + int(index.contig_len[c])
+        parts.append(dna.letters_to_colours(genome_rc[lo:hi], dna.BASE_T))
+    return (np.concatenate(parts).astype(np.int8)
+            if parts else np.zeros(0, np.int8))
 
 
 def _concat_aranges(lengths: np.ndarray) -> np.ndarray:
@@ -93,29 +123,61 @@ class FinalHit:
     score_window_gen: int = 0
     score_vector: int = 0
     score_max: int = 0
+    # colour-space extras (sw_full_results CS fields + post_sw output)
+    crossovers: int = 0
+    dbalign: str = ""
+    qralign: str = ""
+    qual33: str | None = None
 
 
 @dataclass
 class DeviceIndex:
-    """The part of a GenomeIndex that lives on the device: the genome
-    plane (int8) padded with PASS1_PLANE_PAD bytes of GENOME_PAD, and the
-    contig offsets as int64.  Window starts are int64 end to end, so one
-    plane covers any genome size."""
+    """The part of a GenomeIndex that lives on the device for pass 1, each
+    plane int8 with a tail of PASS1_PLANE_PAD bytes of GENOME_PAD, and the
+    contig offsets as int64.  Letter space keeps the genome plane; colour
+    space keeps the forward||reverse-complement concatenations of the
+    colour and letter planes (`cs_cat`, `ls_cat`), so a reverse hit is a
+    start offset by the genome length.  Window starts are int64 end to
+    end, so one plane covers any genome size."""
 
-    plane: torch.Tensor
+    plane: torch.Tensor | None
     contig_offsets: torch.Tensor
+    cs_cat: torch.Tensor | None = None
+    ls_cat: torch.Tensor | None = None
 
     @classmethod
-    def from_index(cls, index: GenomeIndex, device) -> "DeviceIndex":
+    def from_index(cls, index: GenomeIndex, device,
+                   colour_space: bool = False,
+                   genome_rc: np.ndarray | None = None,
+                   genome_cs_rc: np.ndarray | None = None) -> "DeviceIndex":
+        """genome_rc / genome_cs_rc: the reverse-complement letter and
+        colour planes, when the caller has them already."""
         device = torch.device(device)
-        g = torch.tensor(np.asarray(index.genome), dtype=torch.int8)
-        plane = torch.full((g.shape[0] + PASS1_PLANE_PAD,),
-                           sw_vector.GENOME_PAD, dtype=torch.int8,
-                           device=device)
-        plane[:g.shape[0]] = g.to(device)
         offs = torch.tensor(np.asarray(index.contig_offsets),
                             dtype=torch.int64, device=device)
-        return cls(plane=plane, contig_offsets=offs)
+        if not colour_space:
+            return cls(plane=_padded_plane([index.genome], device),
+                       contig_offsets=offs)
+        if index.genome_cs is None:
+            raise ValueError("colour-space mapping needs an index built "
+                             "with colour_space=True")
+        if genome_rc is None:
+            genome_rc = _reverse_complement_plane(index)
+        if genome_cs_rc is None:
+            genome_cs_rc = _colour_plane_rc(index, genome_rc)
+        return cls(plane=None, contig_offsets=offs,
+                   cs_cat=_padded_plane([index.genome_cs, genome_cs_rc],
+                                        device),
+                   ls_cat=_padded_plane([index.genome, genome_rc], device))
+
+
+def _padded_plane(parts, device) -> torch.Tensor:
+    """The parts end to end, then PASS1_PLANE_PAD bytes of GENOME_PAD, as
+    one int8 tensor on `device`."""
+    host = np.concatenate(
+        [np.asarray(a, dtype=np.int8) for a in parts]
+        + [np.full(PASS1_PLANE_PAD, sw_vector.GENOME_PAD, np.int8)])
+    return torch.from_numpy(host).to(device)
 
 
 class Mapper:
@@ -126,25 +188,27 @@ class Mapper:
                  device: str | torch.device = "cpu"):
         self.index = index
         self.cfg = cfg or MapperConfig()
-        if self.cfg.colour_space:
-            raise _not_ported("colour-space mapping", "item 4")
-        if self.cfg.gapless:
-            raise _not_ported("gapless mapping (-U, -M mirna)", "item 3")
         if self.cfg.device_candidates is True:
             raise _not_ported("on-device candidate generation", "item 7")
         self.device = torch.device(device)
-        self.probs = ScoreProbs.from_scores(self.cfg.params, False)
+        cs = self.cfg.colour_space
+        self.probs = ScoreProbs.from_scores(self.cfg.params, cs)
         # reverse-complement genome plane, same contig offsets
-        # (genome_contigs_rc, genome.c:1107)
-        parts = []
-        for c in range(index.num_contigs):
-            lo = int(index.contig_offsets[c])
-            hi = lo + int(index.contig_len[c])
-            parts.append(dna.reverse_complement(index.genome[lo:hi]))
-        self.genome_rc = (np.concatenate(parts).astype(np.int8)
-                          if parts else np.zeros(0, np.int8))
-        # the genome plane stays resident on the device for pass 1
-        self.dev_index = DeviceIndex.from_index(index, self.device)
+        self.genome_rc = _reverse_complement_plane(index)
+        # CS planes: colour translations of both letter strands
+        self.genome_cs = index.genome_cs
+        self.genome_cs_rc = (_colour_plane_rc(index, self.genome_rc)
+                             if cs else None)
+        # the CS vector filter scores colour mismatches as one crossover
+        # (f1_setup arg: match + crossover, gmapper.c:2932-2934)
+        self.vect_params = (self.cfg.params if not cs
+                            else self.cfg.params.with_(
+                                mismatch=self.cfg.params.match
+                                + self.cfg.params.crossover))
+        # the pass-1 planes stay resident on the device
+        self.dev_index = DeviceIndex.from_index(
+            index, self.device, colour_space=cs, genome_rc=self.genome_rc,
+            genome_cs_rc=self.genome_cs_rc)
         self.min_seed_span = index.seed_set.min_span
         self.stats = {"reads": 0, "reads_matched": 0, "reads_dropped": 0,
                       "total_matches": 0, "pass1_windows": 0,
@@ -197,23 +261,122 @@ class Mapper:
     def _vector_scores(self, entries, rid, st, cn, g_off_pos, w_len,
                        G: int, R: int) -> torch.Tensor:
         """Pass-1 vector-SW scores for hit rows (g_off in pos-strand
-        frame): read[st] against the forward genome.  Returns an int32
-        tensor on the mapper's device, still in flight on a card.
+        frame).  Returns an int32 tensor on the mapper's device, still in
+        flight on a card.
 
-        Windows are gathered from the resident plane at int64 starts on
+        LS scores read[st] against the forward genome.  CS first applies
+        the reverse_hit framing (read_pass1_per_strand,
+        mapping.c:1317-1341): the input-strand colour read (strand 0)
+        against the colour plane of the hit's genome strand, colour 0
+        against lstocs(letter plane, initbp); a reverse hit starts one
+        genome length into the fw||rc planes.
+
+        Windows are gathered from the resident planes at int64 starts on
         every device — fused into the kernel on a card, by the plain
         version on the CPU — so per batch only O(windows) starts and one
         [B, 2, R] read matrix cross to the device.  Windows never
         overhang their contig, so this equals the host gather."""
         dix = self.dev_index
-        lo = (dix.contig_offsets[self._to_device(cn.astype(np.int64))]
-              + self._to_device(g_off_pos.astype(np.int64)))
-        return sw_vector.p1_gather_score_ls(
-            dix.plane, lo, self._to_device(w_len.astype(np.int32)),
-            self._to_device(rid.astype(np.int32)),
-            self._to_device(st.astype(np.int32)),
-            self._to_device(self._reads2_matrix(entries, R)), G,
-            self.cfg.params)
+        wl = self._to_device(w_len.astype(np.int32))
+        rid_d = self._to_device(rid.astype(np.int32))
+        rb2 = self._to_device(self._reads2_matrix(entries, R))
+        if not self.cfg.colour_space:
+            lo = (dix.contig_offsets[self._to_device(cn.astype(np.int64))]
+                  + self._to_device(g_off_pos.astype(np.int64)))
+            return sw_vector.p1_gather_score_ls(
+                dix.plane, lo, wl, rid_d,
+                self._to_device(st.astype(np.int32)), rb2, G,
+                self.cfg.params)
+        clen = self.index.contig_len[cn].astype(np.int64)
+        rev = st != 0
+        goff_f = np.where(rev, clen - g_off_pos - w_len.astype(np.int64),
+                          g_off_pos)
+        lo = (self.index.contig_offsets[cn].astype(np.int64) + goff_f
+              + np.where(rev, int(self.index.total_len), 0))
+        initbp = np.array([entries[r].initbp for r in rid], np.int8)
+        return sw_vector.p1_gather_score_cs(
+            dix.cs_cat, dix.ls_cat, self._to_device(lo.astype(np.int64)),
+            wl, rid_d, self._to_device(np.zeros(len(rid), np.int32)),
+            self._to_device(initbp), rb2, G, self.vect_params)
+
+    def _gapless_scores(self, entries, rid, st, cn, g_off_pos, ax, ay,
+                        al, aw, w_len, R: int) -> torch.Tensor:
+        """Pass-1 gapless scores: sw_gapless along the anchor diagonal
+        (f1_run with gapless=true, f1-wrapper.h:118-120; sw-gapless.c:58).
+
+        g_idx = g_off + anchor.x, r_idx = anchor.y in the hit's genome-strand
+        frame (read_pass1_per_strand, mapping.c:1335-1348); CS applies the
+        reverse_hit framing and the forced-first-colour rule first.  The
+        diagonals are gathered on the host; the score runs on the mapper's
+        device (an int32 tensor, still in flight on a card)."""
+        coff = self.index.contig_offsets[cn]
+        clen = self.index.contig_len[cn]
+        rlen = np.array([entries[r].read_len for r in rid], np.int64)
+        wl = w_len.astype(np.int64)
+        ax = ax.astype(np.int64)
+        ay = ay.astype(np.int64)
+        cols = np.arange(R, dtype=np.int64)[None, :]
+
+        def diag_rows(plane, g_left):
+            gi = g_left[:, None] + cols
+            src = np.minimum(coff[:, None] + gi, len(plane) - 1)
+            out = plane[src]
+            return np.where(gi < clen[:, None], out,
+                            np.int8(sw_gapless.GENOME_PAD)).astype(np.int8)
+
+        def read_rows(istrand_arr, r_left):
+            rb = self._reads_matrix(entries, rid, istrand_arr, R)
+            rb = np.concatenate(
+                [rb, np.full((len(rid), 1), sw_gapless.READ_PAD, np.int8)],
+                axis=1)
+            ri = np.minimum(r_left[:, None] + cols, R)
+            return np.take_along_axis(rb, ri, axis=1)
+
+        p = self.vect_params
+        if not self.cfg.colour_space:
+            d0 = g_off_pos.astype(np.int64) + ax - ay
+            diag = diag_rows(self.index.genome, np.maximum(d0, 0))
+            rrow = read_rows(st, np.maximum(-d0, 0))
+            return sw_gapless.gapless_score_batch(
+                self._to_device(diag), self._to_device(rrow), p)
+
+        # ---- colour space: reverse_hit framing (mapping.c:272-281);
+        # CS input strand is always 0 (the read as given) ----
+        istrand = np.zeros(len(rid), np.int8)
+        rev = st != istrand
+        goff_f = np.where(rev, clen - g_off_pos - wl, g_off_pos)
+        al = al.astype(np.int64)
+        aw = aw.astype(np.int64)
+        ax_f = np.where(rev, -ax + (wl - 1) - (al - 1) - (aw - 1), ax)
+        ay_f = np.where(rev, -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
+        d0 = goff_f + ax_f - ay_f
+        g_left = np.maximum(d0, 0)
+        r_left = np.maximum(-d0, 0)
+        diag_cs = np.where(rev[:, None],
+                           diag_rows(self.genome_cs_rc, g_left),
+                           diag_rows(self.genome_cs, g_left))
+        diag_ls = np.where(rev[:, None],
+                           diag_rows(self.genome_rc, g_left),
+                           diag_rows(self.index.genome, g_left))
+        rrow = read_rows(istrand, r_left)
+        # forced first colour when the diagonal starts at read position 0
+        # (sw-gapless.c:85-95): lstocs(genome_ls[g], initbp) vs read[0]
+        initbp = np.array([entries[r].initbp for r in rid], np.int8)
+        gl0 = diag_ls[:, 0]
+        real_colour = np.where((gl0 >= 0) & (gl0 <= 3), gl0 ^ initbp,
+                               np.int8(dna.BASE_N))
+        s0 = np.where(
+            r_left == 0,
+            np.where(real_colour == rrow[:, 0], np.int32(p.match), 0),
+            np.where(
+                (diag_cs[:, 0] != sw_gapless.GENOME_PAD)
+                & (rrow[:, 0] != sw_gapless.READ_PAD),
+                np.where(diag_cs[:, 0] == rrow[:, 0],
+                         np.int32(p.match), np.int32(p.mismatch)),
+                0)).astype(np.int32)
+        return sw_gapless.gapless_score_batch(
+            self._to_device(diag_cs.astype(np.int8)), self._to_device(rrow),
+            p, self._to_device(s0))
 
     def map_batch(self, reads: list[tuple[str, str, str | None]],
                   options: list[ReadMappingOptions] | None = None
@@ -433,10 +596,9 @@ class Mapper:
         return self._reads2_matrix(entries, R)[rid, st]
 
     def _pass1_dispatch(self, entries, hb: cb.HitBatch, opts):
-        """Launch the pass-1 vector-SW kernel; returns a context whose
-        device result is still in flight."""
-        if opts.pass1.gapless:
-            raise _not_ported("gapless pass 1", "item 3")
+        """Launch the pass-1 kernel (vector SW, or the gapless diagonal
+        score); returns a context whose device result is still in
+        flight."""
         keep = hb.matches >= opts.pass1.min_matches
         if not keep.any():
             return None
@@ -447,8 +609,15 @@ class Mapper:
         # are GENOME_PAD, which never changes a score)
         G = _round_up(max(1, int(hb.w_len[idxs].max())), 128)
         R = _round_up(max(e.read_len for e in entries), 8)
-        dev = self._vector_scores(entries, rid, st, hb.cn[idxs],
-                                  hb.g_off[idxs], hb.w_len[idxs], G, R)
+        if opts.pass1.gapless:
+            dev = self._gapless_scores(
+                entries, rid, st, hb.cn[idxs], hb.g_off[idxs],
+                hb.anchor_x[idxs], hb.anchor_y[idxs],
+                hb.anchor_length[idxs], hb.anchor_width[idxs],
+                hb.w_len[idxs], R)
+        else:
+            dev = self._vector_scores(entries, rid, st, hb.cn[idxs],
+                                      hb.g_off[idxs], hb.w_len[idxs], G, R)
         return {"idxs": idxs, "rid": rid, "st": st, "dev": dev, "R": R}
 
     def _pass1(self, entries, hb: cb.HitBatch, opts):
@@ -527,11 +696,14 @@ class Mapper:
         eff_scores = np.where(suppressed, 0, scores)
         # kernel telemetry: the reference invokes the filter only for
         # non-suppressed hits (read_pass1_per_strand, mapping.c:1303-1330);
-        # cells = glen*rlen (sw-vector.c:509)
+        # cells = glen*rlen (sw-vector.c:509) or rlen (sw-gapless.c:105)
         _inv = int((~suppressed).sum())
         _rlen = np.array([entries[r].read_len for r in rid], np.int64)
-        _cells = int((hb.w_len[idxs][~suppressed].astype(np.int64)
-                      * _rlen[~suppressed]).sum())
+        if opts.pass1.gapless:
+            _cells = int(_rlen[~suppressed].sum())
+        else:
+            _cells = int((hb.w_len[idxs][~suppressed].astype(np.int64)
+                          * _rlen[~suppressed]).sum())
         self.tel.f1.add(_inv, _cells, _f1_secs)
         live = eff_scores >= thr
         if not live.any():
@@ -656,15 +828,33 @@ class Mapper:
             _f2_cells = w_len * rlen
             W = _round_up(G, 32)
 
-        stats_d, ops_d = sw_full.sw_full_and_traceback_packed(
-            self._to_device(gb), self._to_device(rb), self._to_device(rev),
-            self._to_device(band_xmin), self._to_device(band_xmax),
-            cfg.params, local_alignment=not cfg.global_alignment, W=W)
-        # LS pass2 re-runs the vector filter per hit before the scalar
-        # DP (hit_run_full_sw, mapping.c:400-415) — account it under f1
-        self.tel.f1.add(N, int((w_len * rlen).sum()))
-        return {"stats_d": stats_d, "ops_d": ops_d, "N": N,
-                "gen_st": gen_st, "g_off": g_off, "w_len": w_len,
+        dev_in = [self._to_device(a) for a in (gb, rb, rev, band_xmin,
+                                                 band_xmax)]
+        qr4 = None
+        if cfg.colour_space:
+            qr4 = np.full((N, 4, R), sw_vector.READ_PAD, np.int8)
+            xover = np.full((N, R), cfg.params.crossover, np.int32)
+            for n, r in enumerate(rid):
+                e = entries[r]
+                qr4[n, :, :e.read_len] = e.read_ls4
+                if e.crossover_score is not None:
+                    xover[n, :e.read_len] = e.crossover_score
+            # the 4-layer DP: the same packed form over the full band
+            # where the JAX package switches to its unbanded kernel
+            stats_d, ops_d = sw_full_cs.sw_full_cs_and_traceback_packed(
+                dev_in[0], self._to_device(qr4), self._to_device(xover),
+                *dev_in[2:], cfg.params,
+                local_alignment=not cfg.global_alignment,
+                taboo_len=cfg.indel_taboo_len, W=W)
+        else:
+            stats_d, ops_d = sw_full.sw_full_and_traceback_packed(
+                *dev_in, cfg.params,
+                local_alignment=not cfg.global_alignment, W=W)
+            # LS pass2 re-runs the vector filter per hit before the scalar
+            # DP (hit_run_full_sw, mapping.c:400-415) — account it under f1
+            self.tel.f1.add(N, int((w_len * rlen).sum()))
+        return {"stats_d": stats_d, "ops_d": ops_d, "qr4": qr4, "gb": gb,
+                "N": N, "gen_st": gen_st, "g_off": g_off, "w_len": w_len,
                 "cn": cn, "f2_cells_rows": np.asarray(_f2_cells, np.int64)}
 
     def _pass2_finish(self, entries, sel, opts, ctx):
@@ -682,11 +872,15 @@ class Mapper:
         # when the per-hit vector re-score clears the pass2 threshold
         # (mapping.c:406-415); that re-score equals the pass1 vector score
         _smax = sel["score_max"].astype(np.int64)
-        _thr = np.array([abs_or_pct(opts.pass2.threshold, s)
-                         for s in _smax])
-        _qual = sel["score_vector"].astype(np.int64) >= _thr
+        if cfg.colour_space or cfg.gapless:
+            _qual = np.ones(N, bool)
+        else:
+            _thr = np.array([abs_or_pct(opts.pass2.threshold, s)
+                             for s in _smax])
+            _qual = sel["score_vector"].astype(np.int64) >= _thr
         self.tel.f2.add(int(_qual.sum()),
                         int(ctx["f2_cells_rows"][_qual].sum()))
+        crossovers = stats[:, 10] if cfg.colour_space else None
         ops_all = ctx["ops_d"].cpu().numpy()[:N]
         score = stats[:, 0]
         tb = {"read_start": stats[:, 1], "genome_start": stats[:, 2],
@@ -703,6 +897,50 @@ class Mapper:
                                      np.unique(rid))
         uniq = np.unique(rid)
 
+        # CS: collect raw-threshold survivors first, run the posterior HMM
+        # for all of them in one vectorized batch (bit-equal to the per-hit
+        # pass), then finalize below
+        cs_posteriors: dict[int, tuple[float, str]] = {}
+        cs_renders: dict[int, tuple[str, str]] = {}
+        if cfg.colour_space:
+            from shrimp_tpu.ops import post_sw as post_sw_mod
+            gb_np, qr4 = ctx["gb"], ctx["qr4"]
+            items = []
+            item_rows = []
+            for n in range(len(rid)):
+                s = int(score[n])
+                if s <= 0:
+                    continue
+                thresh = abs_or_pct(opts.pass2.threshold, score_max[n])
+                if s < thresh:
+                    continue
+                ops_n = tb["ops"][n, :tb["ops_len"][n]]
+                e = entries[rid[n]]
+                dbal, qral = sw_full_cs.render_alignment_cs(
+                    ops_n, gb_np[n], qr4[n],
+                    int(tb["genome_start"][n]), int(tb["read_start"][n]))
+                cs_renders[n] = (dbal, qral)
+                if cfg.compute_mapping_qualities:
+                    q_in = (None if (e.qual is None or cfg.ignore_qvs)
+                            else e.qual)
+                    items.append({"colours": e.read[0], "initbp": e.initbp,
+                                  "qual": q_in,
+                                  "read_start": int(tb["read_start"][n]),
+                                  "dbalign": dbal, "qralign": qral})
+                    item_rows.append(n)
+            if items:
+                _t0 = time.time()
+                res = post_sw_mod.post_sw_batch(
+                    items, self.probs, qual_delta=cfg.qual_delta,
+                    qual_vector_offset=cfg.qual_vector_offset)
+                # post_sw: cells = 16 * alignment columns (sw-post.c:716)
+                self.tel.fwbw.add(
+                    len(items),
+                    16 * sum(len(it["dbalign"]) for it in items),
+                    time.time() - _t0)
+                for n, r in zip(item_rows, res):
+                    cs_posteriors[n] = r
+
         for gi, li in enumerate(uniq):
             lo = grp_bounds[gi]
             hi = grp_bounds[gi + 1] if gi + 1 < len(uniq) else len(rid)
@@ -715,11 +953,30 @@ class Mapper:
                 thresh = abs_or_pct(opts.pass2.threshold, score_max[n])
                 rmapped = int(tb["rmapped"][n])
                 ops_n = tb["ops"][n, :tb["ops_len"][n]].copy()
-                posterior = mapq.ls_posterior(s, rmapped, self.probs)
-                ps = mapq.posterior_score(posterior, rmapped, self.probs)
-                score_full = ps if cfg.compute_mapping_qualities else s
-                if score_full < thresh:
-                    continue
+                if cfg.colour_space:
+                    # sw_full_cs itself zeroes sub-threshold raw scores
+                    # (sw-full-cs.c:1215-1223)
+                    if s < thresh:
+                        continue
+                    dbal, qral = cs_renders[n]
+                    qual33 = None
+                    if cfg.compute_mapping_qualities:
+                        posterior, qual33 = cs_posteriors[n]
+                        score_full = mapq.posterior_score(posterior, rmapped,
+                                                          self.probs)
+                        if score_full < thresh:
+                            continue
+                    else:
+                        posterior = 0.0
+                        score_full = s
+                else:
+                    dbal = qral = ""
+                    qual33 = None
+                    posterior = mapq.ls_posterior(s, rmapped, self.probs)
+                    ps = mapq.posterior_score(posterior, rmapped, self.probs)
+                    score_full = ps if cfg.compute_mapping_qualities else s
+                    if score_full < thresh:
+                        continue
                 pct = (100000 * score_full) // int(score_max[n])
                 key = (score_full if is_absolute(opts.pass2.threshold)
                        else pct)
@@ -736,6 +993,9 @@ class Mapper:
                     deletions=int(tb["deletions"][n]),
                     ops=ops_n,
                     score_max=int(score_max[n]),
+                    crossovers=(int(crossovers[n]) if crossovers is not None
+                                else 0),
+                    dbalign=dbal, qralign=qral, qual33=qual33,
                     kmer_matches=int(sel["matches"][n]),
                     score_window_gen=int(sel["score_window_gen"][n]),
                     score_vector=int(sel["score_vector"][n])))
@@ -814,7 +1074,10 @@ class Mapper:
     # ------------------------------------------------------------------
     def render_hit_alignment(self, re: cand.ReadEntry,
                              fh: FinalHit) -> tuple[str, str]:
-        """dbalign/qralign strings for one hit (rendered lazily)."""
+        """dbalign/qralign strings for one hit (rendered lazily; CS hits
+        carry them from the CS traceback already)."""
+        if fh.qralign:
+            return fh.dbalign, fh.qralign
         plane = self.genome_rc if fh.gen_st == 1 else self.index.genome
         lo = int(self.index.contig_offsets[fh.cn]) + fh.g_off
         window = plane[lo:lo + fh.w_len]
@@ -847,14 +1110,46 @@ class Mapper:
         recs = []
         if not hits:
             if cfg.sam_unaligned:
-                recs.append(sam.unaligned_record(re.name, re.seq, re.qual,
-                                                 cfg.qual_delta))
+                if cfg.colour_space:
+                    recs.append(sam.unaligned_record_cs(re.name, re.seq,
+                                                        re.qual))
+                else:
+                    recs.append(sam.unaligned_record(re.name, re.seq,
+                                                     re.qual, cfg.qual_delta))
                 self._append_tail_tags(recs[-1], re, None)
             return recs
         sel = hits
         if cfg.single_best_mapping and cfg.compute_mapping_qualities:
             best = max(range(len(hits)), key=lambda i: hits[i].mqv)
             sel = [hits[best]]
+        if cfg.colour_space:
+            for fh in sel:
+                recs.append(sam.aligned_record_cs(
+                    name=re.name,
+                    seq_text=re.seq,
+                    qual_raw=re.qual,
+                    contig_name=self.index.contig_names[fh.cn],
+                    contig_len=int(self.index.contig_len[fh.cn]),
+                    genome_start0=fh.g_off + fh.genome_start,
+                    read_start0=fh.read_start,
+                    rmapped=fh.rmapped, gmapped=fh.gmapped,
+                    insertions=fh.insertions, deletions=fh.deletions,
+                    mismatches=fh.mismatches,
+                    ops=fh.ops, qralign=fh.qralign,
+                    qual33=(fh.qual33
+                            if cfg.compute_mapping_qualities else None),
+                    crossovers=fh.crossovers,
+                    bfast=cfg.bfast,
+                    reverse_strand=fh.gen_st == 1,
+                    score_full=fh.score_full,
+                    mapq_v=fh.mqv if cfg.compute_mapping_qualities else 255,
+                    z0=(fh.z0 if cfg.compute_mapping_qualities
+                        and not cfg.all_contigs else None),
+                    z1=(fh.z1 if cfg.compute_mapping_qualities
+                        and not cfg.all_contigs else None),
+                    read_len=re.read_len))
+                self._append_tail_tags(recs[-1], re, fh)
+            return recs
         for fh in sel:
             recs.append(sam.aligned_record_from_ops(
                 name=re.name,

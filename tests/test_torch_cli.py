@@ -50,12 +50,72 @@ def test_read_group_and_extra_fields():
 
 
 @pytest.mark.parametrize("flags", [
-    ["-p", "opp-in"], ["--mode", "cs"], ["-U"], ["-M", "mirna"],
+    ["-p", "opp-in"], ["--mode", "cs", "-p", "opp-in"],
     ["-S", "prefix"], ["-L", "prefix"], ["--genome-shards", "2"],
-    ["-P"], ["--shrimp-format"], ["-x", "-20"],
+    ["-P"], ["--shrimp-format"],
 ], ids=lambda f: f[0])
 def test_flags_outside_the_slice_exit_1(flags):
     rc, out, err = run(flags + ["reads.fq", "genome.fa"])
     assert rc == 1
     assert "not yet ported to shrimp_tpu_torch" in err
+    assert out == ""
+
+
+# (program name, flags, reads, genome, golden) as the JAX package's CLI
+# tests run them
+CLI_GOLDENS = {
+    "golden_cs": ("gmapper-cs", ["-Q"], "golden_reads_cs.fq",
+                  "golden_genome.fa", "golden_cs.sam"),
+    "golden_cs_bfast": ("gmapper", ["--mode", "cs", "-Q", "--bfast"],
+                        "mini_reads_cs.fq", "golden_genome.fa",
+                        "golden_cs_bfast.sam"),
+    "golden_messy_cs": ("gmapper", ["--mode", "cs", "-Q"],
+                        "messy_reads_cs.fq", "messy_genome.fa",
+                        "golden_messy_cs.sam"),
+    "golden_sqf_cs": ("gmapper", ["--mode", "cs", "-Q",
+                                  "--enable-seed-qual-filter"],
+                      "sqf_reads_cs.fq", "golden_genome.fa",
+                      "golden_sqf_cs.sam"),
+    "golden_cs_mirna": ("gmapper", ["--mode", "cs", "-Q", "-M", "mirna"],
+                        "golden_reads_cs.fq", "golden_genome.fa",
+                        "golden_cs_mirna.sam"),
+    "golden_cs_ungapped": ("gmapper", ["--mode", "cs", "-Q", "-U",
+                                       "--local"],
+                           "golden_reads_cs.fq", "golden_genome.fa",
+                           "golden_cs_ungapped.sam"),
+    "golden_ungapped": ("gmapper", ["--mode", "ls", "-Q", "-U", "--local"],
+                        "mini_reads.fq", "golden_genome.fa",
+                        "golden_ungapped.sam"),
+    "golden_mirna": ("gmapper", ["--mode", "ls", "-Q", "-M", "mirna"],
+                     "golden_reads.fq", "golden_genome.fa",
+                     "golden_mirna.sam"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_GOLDENS))
+def test_colour_space_and_gapless_goldens(case):
+    prog, flags, reads, genome, gold = CLI_GOLDENS[case]
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = gmapper.main([prog] + flags + [os.path.join(GOLDEN, reads),
+                                            os.path.join(GOLDEN, genome)])
+    assert rc == 0, se.getvalue()[-2000:]
+    assert body(so.getvalue()) == golden_body(gold)
+
+
+def test_ungapped_needs_local():
+    rc, out, err = run(["--mode", "cs", "-Q", "-U",
+                        os.path.join(GOLDEN, "golden_reads_cs.fq"),
+                        os.path.join(GOLDEN, "golden_genome.fa")])
+    assert rc == 1
+    assert "cannot use global (or bfast) and ungapped mode" in err
+    assert out == ""
+
+
+@pytest.mark.parametrize("flags", [["-x", "-20"], ["-v", "40"], ["-B"]],
+                         ids=lambda f: f[0])
+def test_colour_space_options_refused_in_letter_space(flags):
+    rc, out, err = run(flags + ["reads.fq", "genome.fa"])
+    assert rc == 1
+    assert "is a colour-space option" in err
     assert out == ""

@@ -18,14 +18,20 @@ import torch
 from shrimp_tpu import index as gindex
 from shrimp_tpu.io import fastx
 from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu.pipeline.candidates import cs_read_ls4
 from shrimp_tpu.pipeline.options import MapperConfig
-from shrimp_tpu_torch import _build
+from shrimp_tpu_torch import _build, gmapper
 from shrimp_tpu_torch.ops import sw_full as tsf
+from shrimp_tpu_torch.ops import sw_full_cs as tcs
+from shrimp_tpu_torch.ops import sw_gapless as tsg
 from shrimp_tpu_torch.ops import sw_vector as tsv
 from shrimp_tpu_torch.pipeline.mapper import Mapper
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LS = SWParams.letter_space()
+CS = SWParams.colour_space()
+# the colour-space pass-1 filter's scoring (Mapper.vect_params)
+CS_VECT = CS.with_(mismatch=CS.match + CS.crossover)
 ASYM = SWParams(match=5, mismatch=-4, a_gap_open=-10, a_gap_extend=-1,
                 b_gap_open=-6, b_gap_extend=-2)
 
@@ -75,6 +81,55 @@ def _pass2_inputs(seed, B, G, R, rlen, W):
     return [torch.from_numpy(a) for a in (gb, rb, rev, bxmin, bxmax)]
 
 
+def _cs_pass2_inputs(seed, B, G, R, rlen, W=None, per_colour=False,
+                     n_rate=0.0, band="anchor"):
+    """Colour reads cut from their windows with 15% colour noise (N
+    colours at n_rate), global or per-colour crossover costs, and bands
+    from compute_band ("anchor", cut to width W), with jumps past the
+    shift clip ("jump"), or over the whole window ("full")."""
+    rng = np.random.default_rng(seed)
+    gb = rng.integers(0, 4, (B, G)).astype(np.int8)
+    glen = rng.integers(rlen + 8, G + 1, B)
+    for b in range(B):
+        gb[b, glen[b]:] = -1
+    qr4 = np.full((B, 4, R), -2, np.int8)
+    xover = np.full((B, R), CS.crossover, np.int32)
+    starts = np.zeros(B, np.int64)
+    for b in range(B):
+        s = starts[b] = int(rng.integers(0, glen[b] - rlen))
+        initbp = int(rng.integers(0, 4))
+        letters = np.concatenate(([initbp], gb[b, s:s + rlen]))
+        colours = np.where(rng.random(rlen) < 0.15,
+                           rng.integers(0, 4, rlen),
+                           letters[:-1] ^ letters[1:]).astype(np.int8)
+        colours[rng.random(rlen) < n_rate] = 4
+        qr4[b, :, :rlen] = cs_read_ls4(colours, initbp)
+        if per_colour:
+            xover[b, :rlen] = -rng.integers(20, 181, rlen)
+    rev = rng.random(B) < 0.5
+    if band == "full":
+        bxmin = np.zeros((B, R), np.int32)
+        bxmax = np.broadcast_to((glen - 1).astype(np.int32)[:, None],
+                                (B, R)).copy()
+    elif band == "jump":
+        bxmin = np.zeros((B, R), np.int32)
+        for b in range(B):
+            steps = np.where(rng.random(R) < 0.08,
+                             rng.integers(20, 3 * G // 2, R),
+                             rng.integers(0, 2, R))
+            bxmin[b] = np.cumsum(steps) - steps[0]
+        bxmax = bxmin + rng.integers(8, 24, (B, 1))
+    else:
+        ay = rng.integers(0, 10, B)
+        bxmin, bxmax = tsf.compute_band(
+            starts + ay + rng.integers(-3, 4, B), ay,
+            np.full(B, rlen // 2), rng.integers(W // 4, W // 2, B), glen, R)
+        bxmax = np.minimum(bxmax, bxmin + W - 1)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (gb, qr4, xover, rev, bxmin.astype(np.int32),
+             bxmax.astype(np.int32))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,R", [(128, 56), (100, 37), (640, 408),
                                  (1408, 1000)])
@@ -117,6 +172,130 @@ def test_sw_full_equals_plain(cuda_device, loc, B, G, R, rlen, W):
         *[a.to(cuda_device) for a in args], LS, loc, W)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R", [(128, 56), (640, 408)])
+def test_sw_vector_cs_gather_equals_plain(cuda_device, G, R):
+    """K2-CS: colour and letter windows from fw||rc planes, the row-0
+    plane made in the kernel."""
+    rng = np.random.default_rng(G * R)
+    L, C = 40000, 192
+    pad = np.full(1 << 12, tsv.GENOME_PAD, np.int8)
+    cs_cat = np.concatenate([rng.integers(0, 5, 2 * L).astype(np.int8), pad])
+    ls_cat = np.concatenate([rng.integers(0, 5, 2 * L).astype(np.int8), pad])
+    wlen = rng.integers(G // 2, G + 1, C).astype(np.int32)
+    lo = rng.integers(0, 2 * L - G, C).astype(np.int64)
+    lo[:4] = 2 * L - wlen[:4]
+    reads2 = np.full((24, 2, R), tsv.READ_PAD, np.int8)
+    for b in range(24):
+        n = int(rng.integers(R // 2, R + 1))
+        reads2[b, :, :n] = rng.integers(0, 4, (2, n))
+    rid = rng.integers(0, 24, C).astype(np.int32)
+    ist = np.zeros(C, np.int32)
+    initbp = rng.integers(0, 4, C).astype(np.int8)
+    args = [torch.from_numpy(a) for a in
+            (cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2)]
+    want = tsv.p1_gather_score_cs_plain(*args, G, CS_VECT)
+    before = tsv.CS_LAUNCHES.value
+    got = tsv.p1_gather_score_cs(*[a.to(cuda_device) for a in args], G,
+                                 CS_VECT)
+    assert torch.equal(got.cpu(), want)
+    assert tsv.CS_LAUNCHES.value == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [50, 100, 1000])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["ls", "cs_s0"])
+def test_sw_gapless_equals_plain(cuda_device, R, with_s0):
+    rng = np.random.default_rng(R)
+    N = 4096
+    diag = rng.integers(0, 5, (N, R)).astype(np.int8)
+    reads = np.where(rng.random((N, R)) < 0.8, np.minimum(diag, 3),
+                     rng.integers(0, 4, (N, R))).astype(np.int8)
+    for n in range(N):
+        diag[n, int(rng.integers(0, R + 1)):] = tsg.GENOME_PAD
+        reads[n, int(rng.integers(0, R + 1)):] = tsg.READ_PAD
+    s0 = (torch.from_numpy(rng.choice([0, CS.match, CS.mismatch], N)
+                           .astype(np.int32)) if with_s0 else None)
+    args = [torch.from_numpy(diag), torch.from_numpy(reads)]
+    want = tsg.gapless_score_batch(*args, CS, s0)
+    got = tsg.gapless_score_batch(
+        *[a.to(cuda_device) for a in args], CS,
+        None if s0 is None else s0.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
+@pytest.mark.parametrize("case", [
+    dict(B=256, G=128, R=56, rlen=50, W=64),
+    dict(B=256, G=128, R=56, rlen=50, W=64, per_colour=True, taboo=6),
+    dict(B=128, G=128, R=56, rlen=50, W=64, n_rate=0.05),
+    dict(B=64, G=640, R=408, rlen=400, W=192, per_colour=True),
+    dict(B=64, G=96, R=64, rlen=50, band="jump", taboo=3),
+    dict(B=128, G=128, R=56, rlen=50, band="full", taboo=4),
+], ids=["anchor", "per_colour_taboo", "n_colours", "long", "jump", "full"])
+def test_sw_full_cs_equals_plain(cuda_device, loc, case):
+    case = dict(case)
+    taboo = case.pop("taboo", 0)
+    args = _cs_pass2_inputs(7, **case)
+    bw = int((args[5] - args[4]).max()) + 1
+    W = (-(-case["G"] // 32) * 32 if case.get("band") == "full"
+         else -(-bw // 32) * 32)
+    want = tcs.sw_full_cs_and_traceback_packed_plain(*args, CS, loc, taboo, W)
+    got = tcs.sw_full_cs_and_traceback_packed(
+        *[a.to(cuda_device) for a in args], CS, loc, taboo, W)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genome,reads,gold", [
+    ("golden_genome.fa", "golden_reads_cs.fq", "golden_cs.sam"),
+    ("med_genome.fa", "med_reads_cs.fq", "med_cs.sam"),
+])
+def test_cs_goldens_through_the_kernels(cuda_device, genome, reads, gold):
+    idx = gindex.build_index(
+        list(fastx.iter_contigs(os.path.join(GOLDEN, genome))),
+        colour_space=True)
+    m = Mapper(idx, MapperConfig(colour_space=True, params=CS,
+                                 qual_delta=33), device=cuda_device)
+    recs = [(r.name, r.seq, r.qual)
+            for r in fastx.iter_reads(os.path.join(GOLDEN, reads))]
+    before = (tsv.CS_LAUNCHES.value, tcs.LAUNCHES.value)
+    lines = [rec.line() for e, hits in m.map_batch(recs)
+             for rec in m.sam_records(e, hits)]
+    with open(os.path.join(GOLDEN, gold)) as fh:
+        assert lines == [ln.rstrip("\n") for ln in fh
+                         if not ln.startswith("@")]
+    assert tsv.CS_LAUNCHES.value > before[0]
+    assert tcs.LAUNCHES.value > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,reads,gold", [
+    (["--mode", "cs", "-M", "mirna"], "golden_reads_cs.fq",
+     "golden_cs_mirna.sam"),
+    (["--mode", "cs", "-U", "--local"], "golden_reads_cs.fq",
+     "golden_cs_ungapped.sam"),
+    (["-U", "--local"], "mini_reads.fq", "golden_ungapped.sam"),
+    (["-M", "mirna"], "golden_reads.fq", "golden_mirna.sam"),
+], ids=["cs_mirna", "cs_ungapped", "ungapped", "mirna"])
+def test_gapless_goldens_through_the_kernels(cuda_device, capsys, flags,
+                                             reads, gold):
+    """The CLI maps on the card when there is one; gapless pass 1 runs
+    the sw_gapless kernel."""
+    before = tsg.LAUNCHES.value
+    rc = gmapper.main(["gmapper", "-Q", *flags,
+                       os.path.join(GOLDEN, reads),
+                       os.path.join(GOLDEN, "golden_genome.fa")])
+    out = capsys.readouterr().out
+    assert rc == 0
+    with open(os.path.join(GOLDEN, gold)) as fh:
+        assert [ln for ln in out.splitlines() if ln and ln[0] != "@"] == \
+            [ln.rstrip("\n") for ln in fh if not ln.startswith("@")]
+    assert tsg.LAUNCHES.value > before
 
 
 @pytest.mark.cuda

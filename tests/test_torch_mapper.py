@@ -127,8 +127,6 @@ def test_device_index_equals_jax_plane():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("colour_space", True, "item 4"),
-    ("gapless", True, "item 3"),
     ("device_candidates", True, "item 7"),
 ])
 def test_paths_outside_the_slice_raise(field, value, item):
@@ -138,9 +136,15 @@ def test_paths_outside_the_slice_raise(field, value, item):
         Mapper(_index("golden_genome.fa"), cfg)
 
 
-def test_gapless_option_set_raises():
-    m = Mapper(_index("golden_genome.fa"), MapperConfig(qual_delta=64))
-    opts = m.cfg.unpaired_options()
-    opts[0].pass1.gapless = True
-    with pytest.raises(NotImplementedError, match="item 3"):
-        m.map_batch(_reads("golden_reads.fq")[:20], options=opts)
+def test_gapless_option_set_equals_jax():
+    """An option set with a gapless pass 1 (the sw_gapless diagonal score
+    in place of the vector filter) maps as the JAX Mapper does."""
+    idx, reads = _random_corpus(seed=8)
+    lines = []
+    for cls in (Mapper, JaxMapper):
+        m = cls(idx, MapperConfig(qual_delta=64))
+        opts = m.cfg.unpaired_options()
+        opts[0].pass1.gapless = True
+        lines.append(_lines(m, m.map_batch(reads, options=opts)))
+    assert lines[0] == lines[1]
+    assert len(lines[0]) >= len(reads) // 2

@@ -13,7 +13,8 @@ from shrimp_tpu import dna
 from shrimp_tpu.ops import sw_vector as jsv
 from shrimp_tpu.ops.params import SWParams
 from shrimp_tpu.ops.sw_vector_pallas import sw_score_batch_pallas
-from shrimp_tpu.pipeline.mapper import _p1_gather_score_ls
+from shrimp_tpu.pipeline.mapper import (_p1_gather_score_cs,
+                                        _p1_gather_score_ls)
 from shrimp_tpu_torch.ops import sw_vector as tsv
 
 ASYM = SWParams(match=5, mismatch=-4, a_gap_open=-10, a_gap_extend=-1,
@@ -172,6 +173,50 @@ def test_p1_gather_score_ls_equals_jax(seed):
     assert np.array_equal(got, want)
 
 
+def _gather_inputs_cs(seed, G=128, R=56, C=200, L=10000):
+    """fw||rc colour and letter planes (letters 0-4, so some row-0 codes
+    are BASE_N) with a GENOME_PAD tail; windows in both halves, some
+    ending at the plane's real end."""
+    rng = np.random.default_rng(seed)
+    pad = np.full(1 << 12, jsv.GENOME_PAD, np.int8)
+    ls = rng.integers(0, 5, 2 * L).astype(np.int8)
+    cs = rng.integers(0, 5, 2 * L).astype(np.int8)
+    cs_cat = np.concatenate([cs, pad])
+    ls_cat = np.concatenate([ls, pad])
+    wlen = rng.integers(G // 2, G + 1, C).astype(np.int32)
+    lo = rng.integers(0, 2 * L - G, C).astype(np.int64)
+    lo[:4] = 2 * L - wlen[:4]
+    reads2 = np.full((16, 2, R), jsv.READ_PAD, np.int8)
+    for b in range(16):
+        n = int(rng.integers(R // 2, R + 1))
+        reads2[b, :, :n] = rng.integers(0, 4, (2, n))
+    rid = rng.integers(0, 16, C).astype(np.int32)
+    ist = np.zeros(C, np.int32)
+    initbp = rng.integers(0, 4, C).astype(np.int8)
+    return cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_p1_gather_score_cs_equals_jax(seed):
+    """The colour-space gather: colour windows from cs_cat, row 0 from
+    the letter window mapped through initbp (vect_params: a colour
+    mismatch costs one crossover)."""
+    args = _gather_inputs_cs(seed)
+    G = 128
+    p = SWParams.colour_space()
+    p = p.with_(mismatch=p.match + p.crossover)
+    got = tsv.p1_gather_score_cs(*[torch.from_numpy(a) for a in args], G,
+                                 p).numpy()
+    cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2 = args
+    want = np.asarray(_p1_gather_score_cs(
+        jnp.asarray(cs_cat), jnp.asarray(ls_cat),
+        jnp.asarray(lo.astype(np.int32)), jnp.asarray(wlen),
+        jnp.asarray(rid), jnp.asarray(ist), jnp.asarray(initbp),
+        jnp.asarray(reads2), G, p, engine="scan"))
+    assert np.array_equal(got, want)
+    assert (got > 0).all()
+
+
 def test_plain_refuses_non_cpu_tensors():
     g = torch.zeros((2, 8), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="CPU tensors"):
@@ -182,3 +227,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     g = torch.zeros((2, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         tsv.sw_score_batch_cuda(g, g)
+    args = [torch.from_numpy(a) for a in _gather_inputs_cs(1, C=4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tsv.p1_gather_score_cs_cuda(*args, 128, SWParams.colour_space())
