@@ -7,7 +7,7 @@ Phases, each a function; any failure raises and the script exits
 nonzero.  There is no CPU path: without a CUDA device it stops at once.
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc builds the four kernels from csrc/ (sm_90a), one
+  2. build    nvcc builds the five kernel sources of csrc/ (sm_90a), one
               nvcc process per source, all started together
   3. kernels  each kernel against its plain PyTorch version on random
               inputs (pads, asymmetric gaps, row-0 plane, local/glocal,
@@ -21,21 +21,45 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               gapless golden_cs_mirna / golden_cs_ungapped /
               golden_ungapped / golden_mirna through the gmapper CLI on
               the card, byte-equal to the reference SAM
-  5. size     the main path at a real size: bench.py's generator at
-              100 Mbp (C. elegans class), 16,384 mutated 50 bp reads
-              through Mapper.map_stream in batches of 2,048, the genome
-              plane resident on the card; launch counts of that run;
-              then the first 2,048 reads again through the plain
-              versions (CPU tensors), SAM lines identical; then each
-              kernel timed against its plain version on the inputs of
-              the main path's largest launch
-  6. size-cs  the colour-space path on the same contigs: a colour-space
-              index, 8,192 SOLiD reads of benchmarks/bench_grid.py
-              (seed 23, 50 bp) in batches of 2,048, the fw||rc colour
-              and letter planes resident on the card; launch counts; the
-              first 1,024 reads again through the plain versions; each
-              new kernel timed against its plain version (the gapless
+  5. kernels-l3  the on-device candidate generation (K10) against its
+              plain version on random small indexes: dense and sparse
+              region counts, collapse on and off, -H hashing, gapless,
+              match mode 1, a list cut-off, an absolute threshold and one
+              forced overflow; every output column exactly equal
+  6. goldens-l3  golden_unpaired, med_ls and golden_cs mapped with
+              device_candidates=True, byte-equal to the reference SAM
+  7. size     the main path at a real size: the port's generator
+              (utils/synth.py, the JAX bench's) at 100 Mbp (C. elegans
+              class), 16,384 mutated 50 bp reads through Mapper.map_stream
+              in batches of 2,048, the genome plane resident on the card,
+              candidates on the host (device_candidates=False); launch
+              counts of that run; then the first 2,048 reads again through
+              the plain versions (CPU tensors), SAM lines identical; a warm
+              run of 8,192 reads under torch.profiler (device busy and
+              idle share); then each kernel timed against its plain
+              version on the inputs of the main path's largest launch
+  8. size-l3  the same index and reads with device_candidates=True: the
+              CSR postings resident on the card, K10 for every batch; SAM
+              lines and windows/read equal to the size run's; stage split,
+              ship, peak memory, capacity growth, fallbacks; the same
+              profiled warm run; what "auto"
+              chooses on the first two batches; K10 timed against its
+              plain version on the largest call
+  9. size-cs  the colour-space path on the same contigs: a colour-space
+              index, 8,192 SOLiD reads (synth.make_cs_reads, seed 23,
+              50 bp) in batches of 2,048, the fw||rc colour and letter
+              planes resident on the card, host candidates; launch counts;
+              the first 1,024 reads again through the plain versions;
+              each new kernel timed against its plain version (the gapless
               kernel on a random batch of the largest pass-1 launch)
+
+Each kernel's entry in the kernels line carries `bound_ms`, the least
+time an H100 SXM could take for the same work on the same inputs: the
+larger of the bytes the function must move over 3.35 TB/s and its int32
+operations (counted per DP cell from the recurrence, or per row and
+posting for K10) over the int32 instruction rate of 132 SMs x 64 lanes x
+1.98 GHz.  No single PyTorch call computes any of these functions, so
+`library_ms` is null.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -49,11 +73,7 @@ import subprocess
 import sys
 import time
 
-# the JAX package's import hook would create its compile-cache directory
-# under $HOME; the port needs no JAX at all
-os.environ.setdefault("SHRIMP_TPU_NO_COMPILE_CACHE", "1")
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -62,6 +82,8 @@ SIZE_READS = 16_384
 SIZE_BATCH = 2_048
 SIZE_CS_READS = 8_192
 SIZE_CS_PLAIN = 1_024
+# reads of the warm run under torch.profiler in the size phases
+SIZE_PROFILE_READS = 8_192
 
 KERNELS = {
     "sw_vector": {"source": "shrimp_tpu_torch/csrc/sw_vector.cu",
@@ -74,16 +96,35 @@ KERNELS = {
                    "replaces": "shrimp_tpu/ops/sw_full_cs.py:383"},
     "sw_gapless": {"source": "shrimp_tpu_torch/csrc/sw_gapless.cu",
                    "replaces": "shrimp_tpu/ops/sw_gapless.py:37"},
+    "candidates_device": {
+        "source": "shrimp_tpu_torch/csrc/candidates_device.cu",
+        "replaces": "shrimp_tpu/ops/candidates_device.py:200"},
 }
+
+# H100 SXM peaks for bound_ms (NVIDIA's data sheet): HBM3 bytes/s, and
+# int32 throughput, 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per DP cell, counted from each recurrence (the least
+# the function needs; the kernels execute more): pass 1 scores one cell in
+# about 12 (score pick, B gap, clamp, tilted running max, A gap, best);
+# the 3-state pass 2 picks 3 predecessors per state with pointers (24);
+# the colour-space pass 2 picks 6 per state in 12 states (144); the
+# gapless score is a masked prefix sum and running minimum (8)
+OPS_PER_CELL = {"sw_vector": 12, "sw_vector_cs": 12, "sw_full": 24,
+                "sw_full_cs": 144, "sw_gapless": 8}
+GENOME_PAD, READ_PAD = -1, -2
 
 
 def launch_counters() -> dict:
     """Each kernel's launch counter, by the names of KERNELS."""
-    from shrimp_tpu_torch.ops import sw_full, sw_full_cs, sw_gapless, sw_vector
+    from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
+                                      sw_gapless, sw_vector)
     return {"sw_vector": sw_vector.LAUNCHES,
             "sw_vector_cs": sw_vector.CS_LAUNCHES,
             "sw_full": sw_full.LAUNCHES, "sw_full_cs": sw_full_cs.LAUNCHES,
-            "sw_gapless": sw_gapless.LAUNCHES}
+            "sw_gapless": sw_gapless.LAUNCHES,
+            "candidates_device": candidates_device.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -106,21 +147,24 @@ def log(msg: str) -> None:
 
 class Recorder:
     """Replaces a kernel wrapper of an ops module by one that keeps the
-    arguments of its largest call (by rows), then calls it unchanged."""
+    arguments of its largest call (by rows; the first such call, or with
+    `last` the last), then calls it unchanged."""
 
-    def __init__(self, module, name: str, rows):
+    def __init__(self, module, name: str, rows, last: bool = False):
         self.module, self.name, self.rows = module, name, rows
+        self.last = last
         self.args = None
+        self.kw = {}
         self.best = -1
 
     def __enter__(self):
         orig = self.orig = getattr(self.module, self.name)
 
-        def wrapper(*args):
+        def wrapper(*args, **kw):
             n = self.rows(args)
-            if n > self.best:
-                self.best, self.args = n, args
-            return orig(*args)
+            if n > self.best or (self.last and n == self.best):
+                self.best, self.args, self.kw = n, args, kw
+            return orig(*args, **kw)
 
         setattr(self.module, self.name, wrapper)
         return self
@@ -151,6 +195,74 @@ def host_ms(fn) -> tuple[float, object]:
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms: the larger of the bytes over the HBM rate and the int32
+    operations over the int32 instruction rate, and which of the two it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "int32_ops": int(ops)}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(int(t.numel() * t.element_size()) for t in tensors
+               if t is not None)
+
+
+def _gather_bound(name, windows, wlen, rid, st, reads2, G, planes,
+                  outs) -> dict:
+    """Pass-1 gathers: each window's bytes from `planes` planes, the
+    per-window columns and the reads in, one score out; cells are the
+    window length times the read length."""
+    import torch
+    w = wlen.cpu().to(torch.int64).clamp_max(G)
+    rl = (reads2.cpu() != READ_PAD).sum(-1)[rid.cpu().long(), st.cpu().long()]
+    return bound(planes * int(w.sum()) + _nbytes(reads2, *windows)
+                 + _nbytes(*outs),
+                 OPS_PER_CELL[name] * int((w * rl).sum()))
+
+
+def _band_bound(name, read_rows, bxmin, bxmax, ins, outs) -> dict:
+    """Pass 2: the band cells of each alignment's read rows."""
+    import torch
+    width = (bxmax.cpu().long() - bxmin.cpu().long() + 1).clamp_min(0)
+    rows = torch.arange(width.shape[1])[None, :] < read_rows.cpu()[:, None]
+    return bound(_nbytes(*ins) + _nbytes(*outs),
+                 OPS_PER_CELL[name] * int((width * rows).sum()))
+
+
+def profile_map(mapper, reads: list, batch: int) -> dict:
+    """One warm map_stream of `reads` under torch.profiler (CPU and CUDA
+    activities): wall seconds, device busy time (every kernel and copy on
+    the card), the idle share, and the device time by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in mapper.map_stream(iter(reads), batch):
+            pass
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_name = {}
+    for evt in prof.key_averages():
+        # the kernels and copies themselves: a CPU op's device time is
+        # that of the kernels it launched, which appear here too
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
+            by_name[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"reads": len(reads), "wall_secs": round(wall, 3),
+            "device_busy_ms": round(busy_ms, 3),
+            "device_idle_share": (None if busy_ms == 0
+                                  else 1.0 - busy_ms / (wall * 1e3)),
+            "top_device_ms": {k[:60]: [round(ms, 3), n]
+                              for k, (ms, n) in top}}
+
+
 def max_abs_err(a, b) -> int:
     import torch
     a = a.cpu().to(torch.int64)
@@ -176,9 +288,10 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from shrimp_tpu_torch import _build
-    from shrimp_tpu_torch.ops import sw_full, sw_full_cs, sw_gapless, sw_vector
+    from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
+                                      sw_gapless, sw_vector)
     t0 = time.time()
-    mods = (sw_vector, sw_full, sw_full_cs, sw_gapless)
+    mods = (sw_vector, sw_full, sw_full_cs, sw_gapless, candidates_device)
     _build.load_all(m.__name__.rsplit(".", 1)[1] for m in mods)
     for m in mods:
         m._lib()
@@ -237,7 +350,7 @@ def phase_kernels() -> None:
     """Each kernel against its plain version at the main path's bounds."""
     import torch
 
-    from shrimp_tpu.ops.params import SWParams
+    from shrimp_tpu_torch.ops.params import SWParams
     from shrimp_tpu_torch.ops import sw_full, sw_vector
     cuda = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
@@ -325,7 +438,7 @@ def phase_kernels() -> None:
 def _check_pass2(gb, rb, rev, bxmin, bxmax, loc, W, what) -> None:
     import torch
 
-    from shrimp_tpu.ops.params import SWParams
+    from shrimp_tpu_torch.ops.params import SWParams
     from shrimp_tpu_torch.ops import sw_full
     cuda = torch.device("cuda", 0)
     args = [torch.from_numpy(np.ascontiguousarray(a))
@@ -358,9 +471,9 @@ def phase_goldens() -> dict:
     """The three letter-space goldens through the kernels, byte-exact."""
     import torch
 
-    from shrimp_tpu import index as gindex
-    from shrimp_tpu.io import fastx
-    from shrimp_tpu.pipeline.options import MapperConfig
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
     from shrimp_tpu_torch.ops import sw_full, sw_vector
     from shrimp_tpu_torch.pipeline.mapper import Mapper
     sw_vector.LAUNCHES.reset()
@@ -402,13 +515,13 @@ def phase_goldens() -> dict:
 
 
 def size_contigs() -> tuple[list, float]:
-    """bench.py's 100 Mbp genome (seed 20260817), shared by both size
-    phases, and the seconds it took to make."""
-    import bench
-    from shrimp_tpu.io import fastx
-    bench.GENOME_BP = SIZE_GENOME_BP
+    """The synthetic 100 Mbp genome (seed 20260817, the JAX bench's),
+    shared by the size phases, and the seconds it took to make."""
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.utils import synth
     t0 = time.time()
-    chroms = bench.make_genome(np.random.default_rng(20260817))
+    chroms = synth.make_genome(np.random.default_rng(20260817),
+                               SIZE_GENOME_BP)
     contigs = [fastx.Contig(name=f"chr{i + 1}", codes=g)
                for i, g in enumerate(chroms)]
     return contigs, time.time() - t0
@@ -416,7 +529,7 @@ def size_contigs() -> tuple[list, float]:
 
 def top_hit_quality(idx, results, truth) -> dict:
     """matched / recall / precision of the top hit, true when its SAM
-    position is within 8 bp of the generator's (bench_grid.run_cs)."""
+    position is within 8 bp of the generator's."""
     n_done = len(results)
     n_matched = n_correct = 0
     coffs = idx.contig_offsets
@@ -440,32 +553,46 @@ def top_hit_quality(idx, results, truth) -> dict:
             "precision_top_hit": round(n_correct / n_matched, 4)}
 
 
-def phase_size(device: dict, contigs: list,
-               gen_secs: float) -> tuple[dict, dict, dict]:
-    """The main path at 100 Mbp: map, count launches, check quality, and
-    check the first batch against the plain versions."""
-    import torch
-
-    import bench
-    from shrimp_tpu import index as gindex
-    from shrimp_tpu import seeds as seedmod
-    from shrimp_tpu.pipeline.options import MapperConfig
-    from shrimp_tpu_torch.ops import sw_full, sw_vector
-    from shrimp_tpu_torch.pipeline.mapper import Mapper
-
-    card = {"card": device["name"], "nvidia_smi": device["smi"]}
+def size_index(contigs: list, gen_secs: float):
+    """The letter-space index of the size phases (automatic list trim),
+    its 16,384 reads with their true starts, and its build seconds."""
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch import seeds as seedmod
+    from shrimp_tpu_torch.utils import synth
     t0 = time.time()
     idx = gindex.build_index(contigs, seedmod.make_seed_set(None))
     max_w = max(s.weight for s in idx.seed_set.seeds)
     idx.trim(max(1000, (100 * idx.total_len) // (4 ** max_w)))
     index_secs = time.time() - t0
-    reads, truth = bench.make_reads(idx, np.random.default_rng(7),
+    reads, truth = synth.make_reads(idx, np.random.default_rng(7),
                                     SIZE_READS)
     log(f"size: {idx.total_len} bp in {idx.num_contigs} contigs, genome "
         f"{gen_secs:.1f} s, index {index_secs:.1f} s")
+    return idx, reads, truth, index_secs
+
+
+def _first_difference(a: list, b: list) -> int:
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def phase_size(device: dict, idx, reads, truth,
+               index_secs: float) -> tuple[dict, dict, dict, list]:
+    """The main path at 100 Mbp with host candidates: map, count
+    launches, check quality, and check the first batch against the plain
+    versions.  Returns the launches, the recorded largest calls, the
+    stats and the SAM lines."""
+    import torch
+
+    from shrimp_tpu_torch.ops import sw_full, sw_vector
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+
+    def cfg():
+        return MapperConfig(qual_delta=64, device_candidates=False)
 
     torch.cuda.reset_peak_memory_stats()
-    mapper = Mapper(idx, MapperConfig(qual_delta=64), device="cuda")
+    mapper = Mapper(idx, cfg(), device="cuda")
     torch.cuda.synchronize()
     rec1 = Recorder(sw_vector, "p1_gather_score_ls_cuda",
                     lambda a: a[1].shape[0])
@@ -484,12 +611,12 @@ def phase_size(device: dict, contigs: list,
     if n_done != SIZE_READS:
         raise AssertionError(f"mapped {n_done} of {SIZE_READS} reads")
     stats = {
-        **card,
+        "card": device["name"], "nvidia_smi": device["smi"],
         "genome_bp": int(idx.total_len), "reads": n_done,
         "index_build_secs": round(index_secs, 3),
         "map_secs": round(map_secs, 3),
         "reads_per_sec": round(n_done / map_secs, 1),
-        "windows_per_read": round(mapper.tel.f1.invocs / n_done, 1),
+        "windows_per_read": mapper.tel.f1.invocs / n_done,
         **top_hit_quality(idx, results, truth),
         "stage_secs": {k: round(v.secs, 3)
                        for k, v in mapper.tel.stages.items() if v.secs},
@@ -499,53 +626,65 @@ def phase_size(device: dict, contigs: list,
         "max_memory_allocated": int(peak),
     }
     log("size: " + json.dumps(stats))
+    lines = _sam_lines(mapper, results)
 
     # the first batch again through the plain versions (CPU tensors)
     first = _sam_lines(mapper, results[:SIZE_BATCH])
-    plain = Mapper(idx, MapperConfig(qual_delta=64), device="cpu")
+    plain = Mapper(idx, cfg(), device="cpu")
     t0 = time.time()
     again = _sam_lines(plain, plain.map_stream(iter(reads[:SIZE_BATCH]),
                                                SIZE_BATCH))
     plain_secs = time.time() - t0
     if again != first:
-        i = next((k for k, (a, b) in enumerate(zip(again, first))
-                  if a != b), min(len(again), len(first)))
-        raise AssertionError(f"plain versions disagree at SAM line {i}")
+        raise AssertionError("plain versions disagree at SAM line "
+                             f"{_first_difference(again, first)}")
     log(f"size: first {SIZE_BATCH} reads identical through the plain "
         f"versions ({len(first)} SAM lines; plain map {plain_secs:.1f} s on "
         f"the host CPU)")
-    return launches, {"sw_vector": rec1.args, "sw_full": rec2.args}, stats
+    log("size: profile " + json.dumps(
+        profile_map(mapper, reads[:SIZE_PROFILE_READS], SIZE_BATCH)))
+    return launches, {"sw_vector": rec1.args, "sw_full": rec2.args}, \
+        stats, lines
+
+
+def _cpu(args) -> list:
+    import torch
+    return [x.cpu() if torch.is_tensor(x) else x for x in args]
 
 
 def time_kernels(args: dict, reps: int = 20) -> dict:
     """Kernel (CUDA events) against plain version (host clock, CPU
     tensors) on recorded main-path inputs; outputs must agree."""
-    import torch
-
     from shrimp_tpu_torch.ops import sw_full, sw_vector
     out = {}
     a = args["sw_vector"]
     got = sw_vector.p1_gather_score_ls_cuda(*a)
     ms = cuda_ms(lambda: sw_vector.p1_gather_score_ls_cuda(*a), reps)
-    cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
-    plain_ms, want = host_ms(lambda: sw_vector.p1_gather_score_ls_plain(*cpu))
+    ca = _cpu(a)
+    plain_ms, want = host_ms(lambda: sw_vector.p1_gather_score_ls_plain(*ca))
+    plane, lo, wlen, rid, st, reads2, G = a[:7]
     out["sw_vector"] = {
-        "shape": {"windows": int(a[1].shape[0]), "G": int(a[6]),
-                  "R": int(a[5].shape[2])},
-        "max_abs_err": max_abs_err(got, want), "ms": round(ms, 4),
-        "plain_ms": round(plain_ms, 1)}
+        "shape": {"windows": int(lo.shape[0]), "G": int(G),
+                  "R": int(reads2.shape[2])},
+        "max_abs_err": max_abs_err(got, want), "ms": ms,
+        "plain_ms": plain_ms,
+        **_gather_bound("sw_vector", (lo, wlen, rid, st), wlen, rid, st,
+                        reads2, G, 1, (got,))}
     a = args["sw_full"]
     s_got, o_got = sw_full.sw_full_and_traceback_packed_cuda(*a)
     ms = cuda_ms(lambda: sw_full.sw_full_and_traceback_packed_cuda(*a), reps)
-    cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
+    ca = _cpu(a)
     plain_ms, (s_want, o_want) = host_ms(
-        lambda: sw_full.sw_full_and_traceback_packed_plain(*cpu))
+        lambda: sw_full.sw_full_and_traceback_packed_plain(*ca))
+    gb, rb, rev, bxmin, bxmax = a[:5]
     out["sw_full"] = {
-        "shape": {"alignments": int(a[0].shape[0]), "G": int(a[0].shape[1]),
-                  "R": int(a[1].shape[1]), "W": int(a[7])},
+        "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
+                  "R": int(rb.shape[1]), "W": int(a[7])},
         "max_abs_err": max(max_abs_err(s_got, s_want),
                            max_abs_err(o_got, o_want)),
-        "ms": round(ms, 4), "plain_ms": round(plain_ms, 1)}
+        "ms": ms, "plain_ms": plain_ms,
+        **_band_bound("sw_full", (rb.cpu() != READ_PAD).sum(1), bxmin,
+                      bxmax, (gb, rb, rev, bxmin, bxmax), (s_got, o_got))}
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -557,7 +696,7 @@ def time_kernels(args: dict, reps: int = 20) -> dict:
 def _cs_params():
     """(scoring, the pass-1 filter's scoring: a colour mismatch costs one
     crossover, Mapper.vect_params)."""
-    from shrimp_tpu.ops.params import SWParams
+    from shrimp_tpu_torch.ops.params import SWParams
     cs = SWParams.colour_space()
     return cs, cs.with_(mismatch=cs.match + cs.crossover)
 
@@ -570,7 +709,7 @@ def _cs_pass2_case(rng, B: int, G: int, R: int, rlen: int, W: int = 64,
     crossover costs, random strands, and compute_band bands cut to width
     W ("anchor"), starts leaping past the shift clip ("jump"), or the
     full band [0, glen - 1] ("full")."""
-    from shrimp_tpu.pipeline.candidates import cs_read_ls4
+    from shrimp_tpu_torch.pipeline.candidates import cs_read_ls4
     from shrimp_tpu_torch.ops import sw_full
     cs, _ = _cs_params()
     gb = rng.integers(0, 4, (B, G)).astype(np.int8)
@@ -765,9 +904,9 @@ def phase_goldens_cs() -> tuple[dict, dict]:
 
     import torch
 
-    from shrimp_tpu import index as gindex
-    from shrimp_tpu.io import fastx
-    from shrimp_tpu.pipeline.options import MapperConfig
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
     from shrimp_tpu_torch import gmapper
     from shrimp_tpu_torch.ops import sw_full_cs, sw_gapless, sw_vector
     from shrimp_tpu_torch.pipeline.mapper import Mapper
@@ -831,13 +970,12 @@ def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
     quality, and check the first reads against the plain versions."""
     import torch
 
-    sys.path.insert(0, os.path.join(REPO, "benchmarks"))
-    import bench_grid
-    from shrimp_tpu import index as gindex
-    from shrimp_tpu import seeds as seedmod
-    from shrimp_tpu.pipeline.options import MapperConfig
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch import seeds as seedmod
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
     from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
     from shrimp_tpu_torch.pipeline.mapper import Mapper
+    from shrimp_tpu_torch.utils import synth
 
     cs, _ = _cs_params()
     t0 = time.time()
@@ -846,13 +984,14 @@ def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
     max_w = max(s.weight for s in idx.seed_set.seeds)
     idx.trim(max(1000, (100 * idx.total_len) // (4 ** max_w)))
     index_secs = time.time() - t0
-    reads, truth = bench_grid.make_cs_reads(idx, np.random.default_rng(23),
-                                            SIZE_CS_READS)
+    reads, truth = synth.make_cs_reads(idx, np.random.default_rng(23),
+                                       SIZE_CS_READS)
     log(f"size-cs: {idx.total_len} bp in {idx.num_contigs} contigs, "
         f"colour-space index {index_secs:.1f} s")
 
     def cfg():
-        return MapperConfig(colour_space=True, params=cs, qual_delta=33)
+        return MapperConfig(colour_space=True, params=cs, qual_delta=33,
+                            device_candidates=False)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -898,10 +1037,8 @@ def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
                                                SIZE_CS_PLAIN))
     plain_secs = time.time() - t0
     if again != first:
-        i = next((k for k, (a, b) in enumerate(zip(again, first))
-                  if a != b), min(len(again), len(first)))
-        raise AssertionError(f"size-cs: plain versions disagree at SAM "
-                             f"line {i}")
+        raise AssertionError("size-cs: plain versions disagree at SAM line "
+                             f"{_first_difference(again, first)}")
     log(f"size-cs: first {SIZE_CS_PLAIN} reads identical through the plain "
         f"versions ({len(first)} SAM lines; plain map {plain_secs:.1f} s on "
         f"the host CPU)")
@@ -917,36 +1054,39 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
     import torch
 
     from shrimp_tpu_torch.ops import sw_full_cs, sw_gapless, sw_vector
-
-    def cpu(a):
-        return [x.cpu() if torch.is_tensor(x) else x for x in a]
-
     out = {}
     a = args["sw_vector_cs"]
     got = sw_vector.p1_gather_score_cs_cuda(*a)
     ms = cuda_ms(lambda: sw_vector.p1_gather_score_cs_cuda(*a), reps)
-    ca = cpu(a)
+    ca = _cpu(a)
     plain_ms, want = host_ms(
         lambda: sw_vector.p1_gather_score_cs_plain(*ca))
+    lo, wlen, rid, ist, initbp, reads2, G = a[2:9]
     out["sw_vector_cs"] = {
-        "shape": {"windows": int(a[2].shape[0]), "G": int(a[8]),
-                  "R": int(a[7].shape[2])},
-        "max_abs_err": max_abs_err(got, want), "ms": round(ms, 4),
-        "plain_ms": round(plain_ms, 1)}
+        "shape": {"windows": int(lo.shape[0]), "G": int(G),
+                  "R": int(reads2.shape[2])},
+        "max_abs_err": max_abs_err(got, want), "ms": ms,
+        "plain_ms": plain_ms,
+        **_gather_bound("sw_vector_cs", (lo, wlen, rid, ist, initbp), wlen,
+                        rid, ist, reads2, G, 2, (got,))}
     a = args["sw_full_cs"]
     s_got, o_got = sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a)
     ms = cuda_ms(
         lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a), reps)
-    ca = cpu(a)
+    ca = _cpu(a)
     plain_ms, (s_want, o_want) = host_ms(
         lambda: sw_full_cs.sw_full_cs_and_traceback_packed_plain(*ca))
+    gb, qr4, xover, rev, bxmin, bxmax = a[:6]
     out["sw_full_cs"] = {
-        "shape": {"alignments": int(a[0].shape[0]), "G": int(a[0].shape[1]),
-                  "R": int(a[1].shape[2]), "W": int(a[9]),
+        "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
+                  "R": int(qr4.shape[2]), "W": int(a[9]),
                   "taboo_len": int(a[8])},
         "max_abs_err": max(max_abs_err(s_got, s_want),
                            max_abs_err(o_got, o_want)),
-        "ms": round(ms, 4), "plain_ms": round(plain_ms, 1)}
+        "ms": ms, "plain_ms": plain_ms,
+        **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
+                      bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
+                      (s_got, o_got))}
     a = args.get("sw_gapless")
     if a is None:
         cs, _ = _cs_params()
@@ -957,18 +1097,323 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
              cs, torch.from_numpy(s0).cuda())
     got = sw_gapless.gapless_score_batch_cuda(*a)
     ms = cuda_ms(lambda: sw_gapless.gapless_score_batch_cuda(*a), reps)
-    ca = cpu(a)
+    ca = _cpu(a)
     plain_ms, want = host_ms(
         lambda: sw_gapless.gapless_score_batch_plain(*ca))
+    diag, reads, _, s0 = a[:4]
+    cells = int(((diag.cpu() != GENOME_PAD)
+                 & (reads.cpu() != READ_PAD)).sum())
     out["sw_gapless"] = {
-        "shape": {"hits": int(a[0].shape[0]), "R": int(a[0].shape[1]),
-                  "s0": a[3] is not None},
-        "max_abs_err": max_abs_err(got, want), "ms": round(ms, 4),
-        "plain_ms": round(plain_ms, 1)}
+        "shape": {"hits": int(diag.shape[0]), "R": int(diag.shape[1]),
+                  "s0": s0 is not None},
+        "max_abs_err": max_abs_err(got, want), "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(_nbytes(diag, reads, s0, got),
+                OPS_PER_CELL["sw_gapless"] * cells)}
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{row}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# on-device candidate generation (K10)
+def _l3_corpus(seed: int, n_contigs: int = 3, contig_len: int = 60_000,
+               n_reads: int = 256, read_len: int = 50,
+               use_hashing: bool = False):
+    """A random genome's index (the port's), and the read entries of
+    reads drawn from it with up to two substitutions, from both strands."""
+    from shrimp_tpu_torch import dna
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch import seeds as seedmod
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.pipeline import candidates as cand
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    rng = np.random.default_rng(seed)
+    idx = gindex.build_index(
+        [fastx.Contig(name=f"c{i}",
+                      codes=rng.integers(0, 4, contig_len).astype(np.int8))
+         for i in range(n_contigs)],
+        seedmod.make_seed_set(None, use_hashing=use_hashing))
+    reads = []
+    for i in range(n_reads):
+        p = int(rng.integers(0, len(idx.genome) - read_len))
+        r = idx.genome[p:p + read_len].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            q = int(rng.integers(0, read_len))
+            r[q] = (r[q] + int(rng.integers(1, 4))) % 4
+        if rng.random() < 0.5:
+            r = dna.reverse_complement(r)
+        reads.append((f"r{i}", dna.decode(r), None))
+    cfg = MapperConfig(qual_delta=64)
+    return idx, cfg, cand.prepare_reads(reads, cfg, idx.seed_set.min_span)
+
+
+def _l3_call(idx, cfg, entries, st: int, *, threshold: float = 55.0,
+             match_mode: int = 2, gapless: bool = False,
+             use_regions: bool = False, collapse: bool = True,
+             list_cutoff: int = 0x7FFFFFFF, a_cap: int = 1 << 21,
+             **extra) -> tuple[tuple, dict]:
+    """device_candidates' arguments for one strand of `entries`, built as
+    Mapper._candidates_device builds them."""
+    from shrimp_tpu_torch.pipeline import candidates_batch as cb
+    B = len(entries)
+    R = -(-max(e.read_len for e in entries) // 16) * 16
+    codes = np.zeros((B, R), np.int8)
+    rlen, minpos, wlen, thr = (np.zeros(B, np.int32) for _ in range(4))
+    p = cfg.params
+    for b, e in enumerate(entries):
+        codes[b, :e.read_len] = e.read[st]
+        rlen[b] = e.read_len
+        minpos[b] = e.min_kmer_pos
+        wlen[b] = e.window_len
+        if threshold >= 0:
+            thr[b] = int(min(e.read_len, e.window_len) * p.match
+                         * (threshold / 100.0))
+    kw = dict(a_cap=a_cap, a2_cap=1 << 17, h_cap=1 << 18,
+              n_regions=(idx.total_len >> cb.REGION_BITS) + 1,
+              use_region_counts=use_regions, region_bits=cb.REGION_BITS,
+              region_overlap=cb.REGION_OVERLAP, collapse=collapse,
+              gapless=gapless, match_mode=match_mode, threshold=threshold,
+              match=p.match, b_gap_open=p.b_gap_open,
+              b_gap_extend=p.b_gap_extend, list_cutoff=list_cutoff,
+              num_contigs=idx.num_contigs, **extra)
+    return (codes, rlen, minpos, wlen, thr), kw
+
+
+def _l3_err(got: dict, want: dict) -> int:
+    """The largest difference over every output of device_candidates."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError(f"outputs differ: {sorted(got)} vs "
+                             f"{sorted(want)}")
+    return max(max_abs_err(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+               for k in want)
+
+
+# name -> (_l3_corpus kwargs, strands, _l3_call kwargs)
+L3_CASES = {
+    "dense regions": ({"seed": 3}, (0, 1), {"use_regions": True}),
+    "sparse regions": ({"seed": 23}, (0, 1),
+                       {"use_regions": True, "dense_region_cap": 0}),
+    "no region counts": ({"seed": 5}, (0,), {}),
+    "collapse off": ({"seed": 29}, (0,),
+                     {"use_regions": True, "collapse": False}),
+    "-H hashing": ({"seed": 5, "use_hashing": True}, (0, 1),
+                   {"use_regions": True}),
+    "gapless": ({"seed": 11}, (0,), {"match_mode": 1, "gapless": True}),
+    "match mode 1": ({"seed": 9}, (1,), {"match_mode": 1}),
+    "list cut-off": ({"seed": 17, "contig_len": 8_000}, (0,),
+                     {"list_cutoff": 2}),
+    "absolute threshold": ({"seed": 37}, (0,),
+                           {"use_regions": True, "threshold": -300.0}),
+    "forced overflow": ({"seed": 13}, (0,), {"a_cap": 256}),
+}
+
+
+def phase_kernels_l3() -> None:
+    """K10 on the card against its plain version, every output exact."""
+    from shrimp_tpu_torch.ops import candidates_device as cdv
+    n = 0
+    for name, (corpus_kw, strands, call_kw) in L3_CASES.items():
+        idx, cfg, entries = _l3_corpus(**corpus_kw)
+        dev = cdv.DeviceL3Index.from_host(idx, "cuda")
+        dev_cpu = cdv.DeviceL3Index.from_host(idx, "cpu")
+        for st in strands:
+            args, kw = _l3_call(idx, cfg, entries, st, **call_kw)
+            got = cdv.device_candidates(*args, dev, **kw)
+            want = cdv.device_candidates(*args, dev_cpu, **kw)
+            err = _l3_err(got, want)
+            if err:
+                raise AssertionError(f"candidates_device {name} strand {st}: "
+                                     f"err {err}")
+            if name == "forced overflow" and not bool(got["overflow"]):
+                raise AssertionError("candidates_device: the forced overflow "
+                                     "was not reported")
+            if name != "forced overflow" and (bool(got["overflow"])
+                                              or int(got["n"]) == 0):
+                raise AssertionError(f"candidates_device {name}: overflow "
+                                     f"{bool(got['overflow'])}, "
+                                     f"{int(got['n'])} windows")
+            n += 1
+    log(f"kernels: candidates_device equal to its plain version in {n} "
+        "cases")
+
+
+def phase_goldens_l3() -> dict:
+    """golden_unpaired, med_ls and golden_cs with device_candidates=True,
+    byte-exact; returns the K10 launches."""
+    import torch
+
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.ops.params import SWParams
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    cs, _ = _cs_params()
+    reset_launches()
+    for genome, reads, gold, colour in (
+            ("golden_genome.fa", "golden_reads.fq", "golden_unpaired.sam",
+             False),
+            ("med_genome.fa", "med_reads.fq", "med_ls.sam", False),
+            ("golden_genome.fa", "golden_reads_cs.fq", "golden_cs.sam",
+             True)):
+        idx = gindex.build_index(
+            list(fastx.iter_contigs(os.path.join(GOLDEN, genome))),
+            colour_space=colour)
+        cfg = MapperConfig(
+            colour_space=colour,
+            params=cs if colour else SWParams.letter_space(),
+            qual_delta=33 if colour else 64, device_candidates=True)
+        m = Mapper(idx, cfg, device="cuda")
+        recs = [(r.name, r.seq, r.qual) for r in
+                fastx.iter_reads(os.path.join(GOLDEN, reads))]
+        lines = _sam_lines(m, m.map_batch(recs))
+        _check_lines(lines, gold)
+        if m._dev_l3 is None or m.stats["device_l3_fallbacks"]:
+            raise AssertionError(f"{gold}: candidates did not stay on the "
+                                 f"card ({m.stats['device_l3_fallbacks']} "
+                                 "fallbacks)")
+        log(f"goldens-l3: {gold} byte-equal with device candidates "
+            f"({len(lines)} lines)")
+    torch.cuda.synchronize()
+    launches = read_launches(("candidates_device", "sw_vector", "sw_full",
+                              "sw_vector_cs", "sw_full_cs"))
+    log("goldens-l3: launches " + json.dumps(launches))
+    return launches
+
+
+def phase_size_l3(device: dict, idx, reads, size_stats: dict,
+                  size_lines: list) -> tuple[dict, dict, dict]:
+    """The size phase's index and reads with device_candidates=True: SAM
+    lines and windows/read equal to the host-candidate run's; then what
+    "auto" chooses on the first two batches."""
+    import torch
+
+    from shrimp_tpu_torch.ops import candidates_device as cdv
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mapper = Mapper(idx, MapperConfig(qual_delta=64, device_candidates=True),
+                    device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mapper._dev_l3 = cdv.DeviceL3Index.from_host(idx, "cuda")
+    torch.cuda.synchronize()
+    ship_secs = time.time() - t0
+    ship_bytes = _nbytes(mapper._dev_l3.positions, *mapper._dev_l3.offsets)
+    rec = Recorder(cdv, "device_candidates_cuda", lambda a: a[0].shape[0],
+                   last=True)
+    reset_launches()
+    with rec:
+        t0 = time.time()
+        results = list(mapper.map_stream(iter(reads), SIZE_BATCH))
+        torch.cuda.synchronize()
+        map_secs = time.time() - t0
+    launches = read_launches(("candidates_device", "sw_vector", "sw_full"))
+    peak = torch.cuda.max_memory_allocated()
+    n_done = len(results)
+    lines = _sam_lines(mapper, results)
+    if lines != size_lines:
+        raise AssertionError("size-l3: SAM differs from the host-candidate "
+                             f"run at line {_first_difference(lines, size_lines)}"
+                             f" ({len(lines)} vs {len(size_lines)} lines)")
+    wpr = mapper.tel.f1.invocs / n_done
+    if wpr != size_stats["windows_per_read"]:
+        raise AssertionError(f"size-l3: {wpr} windows/read, the host run "
+                             f"{size_stats['windows_per_read']}")
+    if mapper.stats["device_l3_fallbacks"]:
+        raise AssertionError("size-l3: batches fell back to host candidates")
+    stage = {k: round(v.secs, 3) for k, v in mapper.tel.stages.items()
+             if v.secs}
+    host_stage = size_stats["stage_secs"]
+    stats = {
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "reads": n_done, "map_secs": round(map_secs, 3),
+        "reads_per_sec": round(n_done / map_secs, 1),
+        "reads_per_sec_host_candidates": size_stats["reads_per_sec"],
+        "windows_per_read": wpr,
+        "anchor_list_secs": stage.get("anchor_list", 0.0),
+        "hit_list_secs": stage.get("hit_list", 0.0),
+        "anchor_list_secs_host": host_stage.get("anchor_list", 0.0),
+        "hit_list_secs_host": host_stage.get("hit_list", 0.0),
+        "stage_secs": stage,
+        "ship_bytes": ship_bytes, "ship_secs": round(ship_secs, 3),
+        "max_memory_allocated": int(peak),
+        "launches": launches,
+        "a_cap": [Mapper.DEVICE_L3_A_CAP, mapper._dev_l3_a_cap],
+        "a2_cap": [Mapper.DEVICE_L3_A2_CAP, mapper._dev_l3_a2_cap],
+        "device_l3_fallbacks": mapper.stats["device_l3_fallbacks"],
+    }
+    log("size-l3: " + json.dumps(stats))
+    log(f"size-l3: {len(lines)} SAM lines and {wpr} windows/read equal to "
+        "the host-candidate run's")
+    log("size-l3: profile " + json.dumps(
+        profile_map(mapper, reads[:SIZE_PROFILE_READS], SIZE_BATCH)))
+    caps = {"a_cap": mapper._dev_l3_a_cap, "a2_cap": mapper._dev_l3_a2_cap}
+    del mapper
+    torch.cuda.empty_cache()
+
+    # the default, "auto", on the first two batches
+    auto = Mapper(idx, MapperConfig(qual_delta=64), device="cuda")
+    n_auto = 2 * SIZE_BATCH
+    got = _sam_lines(auto, auto.map_stream(iter(reads[:n_auto]), SIZE_BATCH))
+    want = _sam_lines(auto, results[:n_auto])
+    if got != want:
+        raise AssertionError("size-l3: \"auto\" differs from the host run "
+                             f"at SAM line {_first_difference(got, want)}")
+    log("size-l3: auto chose " + json.dumps(
+        {"l3_choice": auto._l3_choice, "l3_reason": auto._l3_reason,
+         "model": auto._l3_model,
+         "device_l3_fallbacks": auto.stats["device_l3_fallbacks"]}))
+    del auto
+    torch.cuda.empty_cache()
+    return launches, {"args": rec.args, "kw": {**rec.kw, **caps}}, stats
+
+
+def time_kernels_l3(rec: dict, idx, reps: int = 5) -> dict:
+    """K10 (CUDA events) against its plain version (host clock, a CPU
+    index) on the largest recorded main-path call; outputs must agree."""
+    from shrimp_tpu_torch.ops import candidates_device as cdv
+    args, kw = rec["args"], rec["kw"]
+    got = cdv.device_candidates_cuda(*args, **kw)
+    ms = cuda_ms(lambda: cdv.device_candidates_cuda(*args, **kw), reps)
+    dev_cpu = cdv.DeviceL3Index.from_host(idx, "cpu")
+    ca = _cpu(args[:5])
+    plain_ms, want = host_ms(
+        lambda: cdv.device_candidates_plain(*ca, dev_cpu, **kw))
+    del dev_cpu
+    err = _l3_err(got, want)
+    codes, rlen = args[0], args[1]
+    dev = args[5]
+    B, R = codes.shape
+    total, n = int(got["n_total"]), int(got["n"])
+    # valid (read, k-mer) rows of every seed: one offsets pair each
+    rl = rlen.cpu().long()
+    mp = args[2].cpu().long()
+    seed_rows = [int((rl - mp - span + 1).clamp(0, R - span + 1).sum())
+                 for span in dev.spans]
+    rows = sum(seed_rows)
+    # in: codes, four int32 per read, two offsets per row, each posting;
+    # out: the emitted windows' 11 int32 columns and emit flag
+    nbytes = codes.numel() + 16 * B + 8 * rows + 4 * total + 45 * n
+    # per row the k-mer id (3 per seed position) and list bounds (6); per
+    # posting expansion and region key (6); per survivor the collapse and
+    # pairing arithmetic (40, the scan's steps not counted)
+    ops = (sum(3 * len(o) * r for o, r in zip(dev.ones, seed_rows))
+           + 6 * rows + 6 * total + 40 * int(got["n_survivors"]))
+    out = {"candidates_device": {
+        "shape": {"reads": B, "R": R, "postings": total,
+                  "survivors": int(got["n_survivors"]), "windows": n,
+                  "a_cap": kw["a_cap"], "a2_cap": kw["a2_cap"]},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes, ops)}}
+    if err or bool(got["overflow"]):
+        raise AssertionError(f"candidates_device on main-path inputs: "
+                             f"{out}, overflow {bool(got['overflow'])}")
     return out
 
 
@@ -978,14 +1423,14 @@ def main() -> int:
         sys.stderr.write("chip_smoke: no CUDA device; nothing to run\n")
         return 2
     sys.path.insert(0, REPO)
-    import bench  # noqa: F401  (fail before any output outside the repo)
-    import shrimp_tpu_torch  # noqa: F401
+    import shrimp_tpu_torch  # noqa: F401  (fails outside the repo)
 
     t_all = time.time()
     device = phase_device()
     phase_build()
     phase_kernels()
     phase_kernels_cs()
+    phase_kernels_l3()
     golden_args = phase_goldens()
     golden_times = time_kernels(golden_args)
     log("kernel times at golden shapes (" + device["smi"] + "): "
@@ -994,12 +1439,22 @@ def main() -> int:
     log("colour-space and gapless kernel times at golden shapes ("
         + device["smi"] + "): "
         + json.dumps(time_kernels_cs(golden_cs_args)))
+    l3_golden_launches = phase_goldens_l3()
     contigs, gen_secs = size_contigs()
-    launches, size_args, _ = phase_size(device, contigs, gen_secs)
+    idx, reads, truth, index_secs = size_index(contigs, gen_secs)
+    launches, size_args, size_stats, size_lines = phase_size(
+        device, idx, reads, truth, index_secs)
     size_times = time_kernels(size_args)
     log("kernel times at 100 Mbp main-path shapes (" + device["smi"]
         + "): " + json.dumps(size_times))
     del size_args
+    launches_l3, l3_rec, _ = phase_size_l3(device, idx, reads, size_stats,
+                                           size_lines)
+    size_times.update(time_kernels_l3(l3_rec, idx))
+    log("candidates_device time at 100 Mbp main-path shapes ("
+        + device["smi"] + "): "
+        + json.dumps(size_times["candidates_device"]))
+    del l3_rec, idx, reads, size_lines
     launches_cs, size_cs_args, _ = phase_size_cs(device, contigs)
     size_times.update(time_kernels_cs(size_cs_args))
     log("colour-space kernel times at 100 Mbp main-path shapes ("
@@ -1008,13 +1463,17 @@ def main() -> int:
                      | {"sw_gapless": size_times["sw_gapless"]}))
     launches.update(launches_cs)
     launches.update(gapless_launches)
+    launches["candidates_device"] = launches_l3["candidates_device"]
+    log("candidates_device launches: goldens-l3 "
+        f"{l3_golden_launches['candidates_device']}, size-l3 "
+        f"{launches['candidates_device']}")
     log(f"total: {time.time() - t_all:.1f} s")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name],
-         "max_abs_err": size_times[name]["max_abs_err"],
-         "ms": size_times[name]["ms"],
-         "plain_ms": size_times[name]["plain_ms"]}
+         **{k: size_times[name][k] for k in keys},
+         "library_ms": None}
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"],

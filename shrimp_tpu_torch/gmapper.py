@@ -9,10 +9,12 @@ trimming and filtering, the pipelined `Mapper.map_stream` loop, and the
 closing statistics block.  The option tables, usage text and logging are
 the JAX package's own.
 
-Mapping runs on the first CUDA device when one is present (the kernels),
-else on the CPU (their plain PyTorch versions).  Flags of paths not yet
-ported (paired, index save/load, genome shards, legacy output) exit with
-rc 1.
+Mapping runs on the first CUDA device (the kernels).  It runs on the CPU
+(their plain PyTorch versions) only when the caller passes `device="cpu"`
+or the environment sets `SHRIMP_TPU_TORCH_DEVICE=cpu`; without a CUDA
+device and without such a request it exits with rc 1.  Flags of paths not
+yet ported (paired, index save/load, genome shards, legacy output) exit
+with rc 1.
 
 Usage:
     python -m shrimp_tpu_torch.gmapper [options] reads.fq genome.fa
@@ -26,7 +28,230 @@ import os
 import sys
 import time
 
-from shrimp_tpu.gmapper import _LONG, _SHORT, VERSION, log, usage
+VERSION = "0.1.0"
+
+_SHORT = "s:o:w:n:l:a:S:L:z:m:i:g:q:e:f:r:h:N:K:p:I:M:1:2:x:v:UCFPEQRTtXYZ?HDVB"
+
+_LONG = [
+    "un=", "al=", "upstream=", "downstream=", "sam-unaligned",
+    "longest-read=", "seeds=", "report=", "match-window=", "cmw-mode=",
+    "cmw-overlap=", "anchor-width=", "save=", "load=", "cutoff=", "match=",
+    "mismatch=", "open-r=", "open-q=", "ext-r=", "ext-q=", "cmv-threshold=",
+    "full-threshold=", "threads=", "thread-chunk=", "pair-mode=", "isize=",
+    "ungapped", "negative", "positive", "pretty", "sam", "fastq",
+    "print-reads", "rev-tiebreak", "tiebreak-off", "isize-histogram",
+    "proj-histogram", "cachebypass-off", "help", "hash-spaced-kmers",
+    "thread-stats", "trim-off", "strata", "max-alignments=", "global",
+    "read-group=", "sam-header=", "no-half-paired", "sam-r2", "mode=",
+    "trim-front=", "trim-end=", "trim-first", "trim-second",
+    "insert-size-dist=", "use-regions", "region-overlap=",
+    "paired-options=", "unpaired-options=", "min-avg-qv=",
+    "extra-sam-fields", "region-bits=", "progress=", "save-mmap=",
+    "load-mmap=", "indel-taboo-len=", "single-best-mapping", "all-contigs",
+    "no-mapping-qualities", "shrimp-format", "half-paired",
+    "no-improper-mappings", "qv-offset=", "sam-header-hd=", "sam-header-sq=",
+    "sam-header-rg=", "sam-header-pg=", "no-autodetect-input", "local",
+    "no-qv-check", "ignore-qvs", "enable-seed-qual-filter",
+    "index-format=", "genome-shards=", "devices=",
+    # colour-space extras
+    "crossover=", "vec-threshold=", "bfast",
+    # letter-space extras
+    "trim-illumina",
+]
+
+
+def usage(prog: str, mode: str, full: bool = False,
+          seed_strings: list[str] | None = None,
+          state: dict | None = None) -> None:
+    """Exact usage text (usage, gmapper.c:1009-1246).
+
+    Like the reference, option defaults reflect the *current* parsed
+    state where the reference prints live globals (strand flags, output
+    format toggles), and compile-time DEF_* constants elsewhere.
+    """
+    st = {
+        "pair_mode": 0, "gapless": False, "global": True,
+        "trim_illumina": False, "bfast": False, "Cflag": False,
+        "Fflag": False, "Pflag": False, "Eflag": True, "Qflag": True,
+        "Rflag": False, "Tflag": True, "Xflag": False, "Yflag": False,
+        "hash_filter_calls": True, "Hflag": False, "Dflag": False,
+        "Vflag": True, "sam_unaligned": False, "half_paired": True,
+        "progress": 100000,
+    }
+    if state:
+        st.update(state)
+    cs = mode == "cs"
+    if seed_strings is None:
+        seed_strings = ["11110111101111", "1111011100100001111",
+                        "1111000011001101111"]
+    e = sys.stderr.write
+    onoff = lambda v: "enabled" if v else "disabled"
+    name = f"gmapper-{mode}"
+    e(f"usage: {name} [options/parameters] "
+      "{ <r> | -1 <r1> -2 <r2> } <g1> <g2>...\n")
+    e("   <r>                  Reads filename, paired or unpaired\n")
+    e("   <r1>                 Upstream reads filename\n")
+    e("   <r2>                 Downstream reads filename\n")
+    e("   <g1> <g2>...         Space seperated list of genome filenames\n")
+    e("Parameters:\n")
+    e("   -s/--seeds           Spaced Seed(s)                (default: ")
+    for sn, s in enumerate(seed_strings):
+        if sn > 0:
+            e(" " * 55)
+        e(f"{s}{')' if sn == len(seed_strings) - 1 else ','}\n")
+    e("   -o/--report          Maximum Hits per Read         "
+      "(default: 10)\n")
+    e("      --max-alignments  Max. align. per read  (0=all) "
+      "(default: 0)\n")
+    e("   -w/--match-window    Match Window Length           "
+      "(default: 140.00%)\n")
+    e("   -n/--cmw-mode        Match Mode                    "
+      "(default: unpaired:2 paired:4)\n")
+    if full:
+        e("   -l/--cmw-overlap     Match Window Overlap Length   "
+          "(default: 90.00%)\n")
+        e("   -a/--anchor-width    Anchor Width Limiting Full SW "
+          "(default: 8; disable: -1)\n")
+        e("\n")
+        e("   -S/--save            Save Genome Proj. in File     "
+          "(default: no)\n")
+        e("   -L/--load            Load Genome Proj. from File   "
+          "(default: no)\n")
+        e("   -z/--cutoff          Projection List Cut-off Len.  "
+          "(default: 4294967295)\n")
+    e("\n")
+    e(f"   -m/--match           SW Match Score                "
+      f"(default: 10)\n")
+    e(f"   -i/--mismatch        SW Mismatch Score             "
+      f"(default: {-24 if cs else -15})\n")
+    e("   -g/--open-r          SW Gap Open Score (Reference) "
+      "(default: -33)\n")
+    e("   -q/--open-q          SW Gap Open Score (Query)     "
+      "(default: -33)\n")
+    e("   -e/--ext-r           SW Gap Extend Score(Reference)"
+      "(default: -7)\n")
+    e("   -f/--ext-q           SW Gap Extend Score (Query)   "
+      "(default: -3)\n")
+    if cs:
+        e("   -x/--crossover       SW Crossover Score            "
+          "(default: -20)\n")
+    e("   -r/--cmw-threshold   Window Generation Threshold   "
+      "(default: 55.00%)\n")
+    if cs:
+        e("   -v/--vec-threshold   SW Vector Hit Threshold       "
+          "(default: 47.00%)\n")
+    e("   -h/--full-threshold  SW Full Hit Threshold         "
+      "(default: 50.00%)\n")
+    e("\n")
+    e("   -N/--threads         Number of Threads             "
+      "(default: 1)\n")
+    if full:
+        e("   -K/--thread-chunk    Thread Chunk Size             "
+          "(default: 1000)\n")
+    e("\n")
+    pair_names = ["none", "opposing strands; inwards",
+                  "opposing strands; outwards",
+                  "same strand; second is forward",
+                  "same strand; second is backward"]
+    e(f"   -p/--pair-mode       Paired Mode                   "
+      f"(default: {pair_names[st['pair_mode']]})\n")
+    e("   -I/--isize           Min and Max Insert Size       "
+      "(default: 0,1000)\n")
+    e("      --longest-read    Maximum read length           "
+      "(default: 1000)\n")
+    e("   -1/--upstream        Upstream read pair file\n")
+    e("   -2/--downstream      Downstream read pair file\n")
+    e("      --un              Dump unaligned reads to file\n")
+    e("      --al              Dump aligned reads to file\n")
+    e("      --read-group      Attach SAM Read Group name\n")
+    e("      --sam-header      Use file as SAM header\n")
+    e("      --single-best-mapping Report only the best mapping(s), "
+      "this is not strata (see README)\n")
+    e("      --all-contigs     Report a maximum of 1 mapping for "
+      "each read.\n")
+    e("      --no-mapping-qualities Do not compute mapping qualities\n")
+    e("      --insert-size-dist Specifies the mean and stddev of the "
+      "insert sizes\n")
+    e("      --no-improper-mappings (see README)\n")
+    if full:
+        e("      --trim-front      Trim front of reads by this amount\n")
+        e("      --trim-end        Trim end of reads by this amount\n")
+        e("      --trim-first      Trim only first read in pair\n")
+        e("      --trim-second     Trim only second read in pair\n")
+        e("      --min-avg-qv      The minimum average quality value "
+          "of a read\n")
+        e(f"      --progress        Display a progress line each "
+          f"<value> reads. (default {st['progress']})\n")
+        e("      --save-mmap       Save genome projection to shared "
+          "memory\n")
+        e("      --load-mmap       Load genome projection from shared "
+          "memory\n")
+        e("      --indel-taboo-len Prevent indels from starting or "
+          "ending in the tail\n")
+        e(f"      --shrimp-format   Output mappings in SHRiMP format "
+          f"(default: {'disabled' if st['Eflag'] else 'enabled'})\n")
+        e("      --qv-offset       (see README)\n")
+        e("      --sam-header-hd   (see README)\n")
+        e("      --sam-header-sq   (see README)\n")
+        e("      --sam-header-rg   (see README)\n")
+        e("      --sam-header-pg   (see README)\n")
+        e("      --no-autodetect-input (see README)\n")
+    e("\n")
+    e("Options:\n")
+    e(f"   -U/--ungapped        Perform Ungapped Alignment    "
+      f"(default: {onoff(st['gapless'])})\n")
+    e(f"      --global          Perform full global alignment "
+      f"(default: {onoff(st['global'])})\n")
+    e(f"      --local           Perform local alignment       "
+      f"(default: {onoff(not st['global'])})\n")
+    if cs:
+        e(f"      --bfast           Try to align like bfast       "
+          f"(default: {onoff(st['bfast'])})\n")
+    else:
+        e(f"      --trim-illumina   Trim trailing B qual values   "
+          f"(default: {onoff(st['trim_illumina'])})\n")
+    e(f"   -C/--negative        Negative Strand Aln. Only     "
+      f"(default: {onoff(st['Cflag'])})\n")
+    e(f"   -F/--positive        Positive Strand Aln. Only     "
+      f"(default: {onoff(st['Fflag'])})\n")
+    e(f"   -P/--pretty          Pretty Print Alignments       "
+      f"(default: {onoff(st['Pflag'])})\n")
+    e(f"   -E/--sam             Output SAM Format             "
+      f"(default: {onoff(st['Eflag'])})\n")
+    e(f"   -Q/--fastq           Reads are in fastq format     "
+      f"(default: {onoff(st['Qflag'])})\n")
+    if full:
+        e(f"   -R/--print-reads     Print Reads in Output         "
+          f"(default: {onoff(st['Rflag'])})\n")
+        e("   -t/--tiebreak-off    Disable Reverse Tie-break\n")
+        e(f"                                  on Negative Strand  "
+          f"(default: {onoff(st['Tflag'])})\n")
+        e(f"   -X/--isize-hist      Print Insert Size Histogram   "
+          f"(default: {onoff(st['Xflag'])})\n")
+        e(f"   -Y/--proj-hist       Print Genome Proj. Histogram  "
+          f"(default: {onoff(st['Yflag'])})\n")
+        e("   -Z/--bypass-off      Disable Cache Bypass for SW\n")
+        e(f"                                    Vector Calls      "
+          f"(default: {onoff(st['hash_filter_calls'])})\n")
+        e("   -H/--spaced-kmers    Hash Spaced Kmers in Genome\n")
+        e(f"                                    Projection        "
+          f"(default: {onoff(st['Hflag'])})\n")
+        e(f"   -D/--thread-stats    Individual Thread Statistics  "
+          f"(default: {onoff(st['Dflag'])})\n")
+        e("   -V/--trim-off        Disable Automatic Genome\n")
+        e(f"                                 Index Trimming       "
+          f"(default: {onoff(st['Vflag'])})\n")
+    e(f"      --sam-unaligned   Unaligned reads in SAM output "
+      f"(default: {onoff(st['sam_unaligned'])})\n")
+    e(f"      --half-paired     Output half mapped read pairs "
+      f"(default: {onoff(st['half_paired'])})\n")
+    e("      --strata          Print only the best scoring hits\n")
+    e("   -?/--help            Full List of Parameters and Options\n")
+
+
+def log(msg: str) -> None:
+    sys.stderr.write(msg + "\n")
+
 
 # flag -> the path it belongs to; each exits with rc 1 for now
 _NOT_PORTED = {
@@ -46,7 +271,10 @@ _NOT_PORTED = {
 }
 
 
-def main(argv: list[str] | None = None) -> int:
+def main(argv: list[str] | None = None,
+         device: str | None = None) -> int:
+    """Run the CLI on `argv` (program name first); map on `device`, by
+    default $SHRIMP_TPU_TORCH_DEVICE or else "cuda"."""
     argv = list(sys.argv if argv is None else argv)
     prog = os.path.basename(argv[0]) if argv else "gmapper"
     args = argv[1:]
@@ -68,13 +296,13 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from shrimp_tpu import index as gindex
-    from shrimp_tpu import seeds as seedmod
-    from shrimp_tpu.io import fastx
-    from shrimp_tpu.ops.params import ScoreProbs, SWParams
-    from shrimp_tpu.pipeline import candidates_batch as cb
-    from shrimp_tpu.pipeline.options import MapperConfig
-    from shrimp_tpu.utils import telemetry
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch import seeds as seedmod
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.ops.params import ScoreProbs, SWParams
+    from shrimp_tpu_torch.pipeline import candidates_batch as cb
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.utils import telemetry
     from shrimp_tpu_torch.pipeline.mapper import Mapper
 
     colour = mode == "cs"
@@ -391,7 +619,12 @@ def main(argv: list[str] | None = None) -> int:
         # default mirna seed set only when none given (gmapper.c:2375-2379)
         seed_specs = seedmod.MIRNA_SEEDS
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device or os.environ.get("SHRIMP_TPU_TORCH_DEVICE")
+                          or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        log("error: no CUDA device; map on the CPU with "
+            "SHRIMP_TPU_TORCH_DEVICE=cpu")
+        return 1
     log("--------------------------------------------------"
         "------------------------------")
     log(f"shrimp-tpu: [{'COLOUR' if colour else 'LETTER'} SPACE] gmapper "
@@ -616,9 +849,10 @@ def main(argv: list[str] | None = None) -> int:
         engine_info={
             "pass1_engine": "cuda kernel" if on_card else "plain torch",
             "pass1_path": "device" if on_card else "host",
-            "l3_choice": "host",
-            "device_candidates": False,
-            "device_l3_fallbacks": 0,
+            "l3_choice": mapper._l3_choice,
+            "l3_reason": mapper._l3_reason,
+            "device_candidates": cfg.device_candidates,
+            "device_l3_fallbacks": ms.get("device_l3_fallbacks", 0),
         },
         pair_mode_none=True,
         half_paired=cfg.half_paired,

@@ -28,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu_torch.ops.params import SWParams
 from shrimp_tpu_torch import _build
 from shrimp_tpu_torch.ops.sw_vector import GENOME_PAD, NEG_INF
 
@@ -96,7 +96,7 @@ def compute_band(rect_x: np.ndarray, rect_y: np.ndarray, rect_len: np.ndarray,
 def render_alignment(res: SWAlignment, genome_row: np.ndarray,
                      read_row: np.ndarray) -> None:
     """Fill dbalign/qralign strings (pretty_print, sw-full-ls.c:524-560)."""
-    from shrimp_tpu import dna
+    from shrimp_tpu_torch import dna
 
     d_chars, q_chars = [], []
     gi, ri = res.genome_start, res.read_start

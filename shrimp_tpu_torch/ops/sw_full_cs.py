@@ -42,7 +42,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu_torch.ops.params import SWParams
 from shrimp_tpu_torch import _build
 from shrimp_tpu_torch.ops.sw_full import shift_max
 from shrimp_tpu_torch.ops.sw_vector import GENOME_PAD, NEG_INF
@@ -522,7 +522,7 @@ def render_alignment_cs(ops: np.ndarray, genome_row: np.ndarray,
     genome_row is the letter-space window; qr4_row is [4, R] letter decodings.
     Crossover columns render lowercase; an N read letter in a match column is
     replaced by the genome letter (same case rule)."""
-    from shrimp_tpu import dna
+    from shrimp_tpu_torch import dna
 
     ops = np.asarray(ops, dtype=np.int32)
     typ = ops & 3

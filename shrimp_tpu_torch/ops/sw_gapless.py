@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu_torch.ops.params import SWParams
 from shrimp_tpu_torch import _build
 
 GENOME_PAD = -1          # beyond-contig genome positions

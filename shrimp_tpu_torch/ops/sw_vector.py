@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu_torch.ops.params import SWParams
 from shrimp_tpu_torch import _build
 
 NEG_INF = -(1 << 28)

@@ -4,7 +4,8 @@ the counterpart of `shrimp_tpu/pipeline/mapper.py`.
 Replicates `gmapper/mapping.c:handle_read` (:1791-1868) for a whole batch
 of reads at once:
 
-  candidates (native C, host)  →  pass 1 vector-SW filter, or the gapless
+  candidates (native C on the host,
+  or the K10 kernels on the device) →  pass 1 vector-SW filter, or the gapless
                                   diagonal score of -U / -M mirna (device)
                                →  window-overlap suppression + top-k (host)
                                →  pass 2 full SW + traceback: 3-state in
@@ -16,15 +17,17 @@ of reads at once:
 
 The host NumPy and native-C logic is the JAX package's, copied line for
 line because it is what makes the SAM bytes exact.  Only the device calls
-differ: pass 1 goes through `ops.sw_vector` or `ops.sw_gapless`, pass 2
-through `ops.sw_full` or `ops.sw_full_cs`.  The vector pass 1 gathers
-every window from planes that stay resident on the device
-(`DeviceIndex`); on a CUDA device the gather is fused into the kernel, on
-the CPU the plain versions run.  The gapless diagonals are gathered on
-the host, as in the JAX package.
+differ: candidates go through `ops.candidates_device` when
+`MapperConfig.device_candidates` says so (True, or "auto" after timing
+both paths once), pass 1 through `ops.sw_vector` or `ops.sw_gapless`,
+pass 2 through `ops.sw_full` or `ops.sw_full_cs`.  The vector pass 1
+gathers every window from planes that stay resident on the device
+(`DeviceIndex`), as the device candidates read a CSR index resident there
+(`ops.candidates_device.DeviceL3Index`); on a CUDA device the kernels
+run, on the CPU their plain versions.  The gapless diagonals are gathered
+on the host, as in the JAX package.
 
-Out of this slice, and refused with NotImplementedError: on-device
-candidates and paired mapping.
+Paired mapping is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,25 +39,25 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from shrimp_tpu import dna, mapq
-from shrimp_tpu.index import GenomeIndex
-from shrimp_tpu.io import sam
-from shrimp_tpu.ops.params import ScoreProbs
-from shrimp_tpu.pipeline import candidates as cand
-from shrimp_tpu.pipeline import candidates_batch as cb
-from shrimp_tpu.pipeline.options import (MapperConfig, ReadMappingOptions,
+from shrimp_tpu_torch import dna, mapq
+from shrimp_tpu_torch.index import GenomeIndex
+from shrimp_tpu_torch.io import sam
+from shrimp_tpu_torch.ops.params import ScoreProbs
+from shrimp_tpu_torch.pipeline import candidates as cand
+from shrimp_tpu_torch.pipeline import candidates_batch as cb
+from shrimp_tpu_torch.pipeline.options import (MapperConfig, ReadMappingOptions,
                                          abs_or_pct, is_absolute)
-from shrimp_tpu.utils import telemetry
-from shrimp_tpu_torch.ops import sw_full, sw_full_cs, sw_gapless, sw_vector
+from shrimp_tpu_torch.utils import telemetry
+from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
+                                  sw_gapless, sw_vector)
 
 # bytes of GENOME_PAD appended to the resident device plane (the JAX
 # package's layout, kept so the two planes are byte-identical)
 PASS1_PLANE_PAD = 1 << 12
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to shrimp_tpu_torch (ROADMAP §1 {item})")
+# measured host->device probe bandwidth (bytes/s) per device type, one
+# probe per process
+_SHIP_BW: dict[str, float] = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -181,15 +184,14 @@ def _padded_plane(parts, device) -> torch.Tensor:
 
 
 class Mapper:
-    """Maps batches of reads against a GenomeIndex on `device` (CUDA:
-    the kernels; CPU: their plain PyTorch versions)."""
+    """Maps batches of reads against a GenomeIndex on `device`: the card
+    (the kernels) unless the caller asks for the CPU (their plain PyTorch
+    versions)."""
 
     def __init__(self, index: GenomeIndex, cfg: MapperConfig | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.index = index
         self.cfg = cfg or MapperConfig()
-        if self.cfg.device_candidates is True:
-            raise _not_ported("on-device candidate generation", "item 7")
         self.device = torch.device(device)
         cs = self.cfg.colour_space
         self.probs = ScoreProbs.from_scores(self.cfg.params, cs)
@@ -213,8 +215,15 @@ class Mapper:
         self.stats = {"reads": 0, "reads_matched": 0, "reads_dropped": 0,
                       "total_matches": 0, "pass1_windows": 0,
                       "pass2_windows": 0, "dup_matches_pruned": 0,
-                      "reads_dropped_max_aln": 0, "reads_matched_conf": 0}
+                      "reads_dropped_max_aln": 0, "reads_matched_conf": 0,
+                      "device_l3_fallbacks": 0}
         self.tel = telemetry.Telemetry()
+        self._dev_l3 = None
+        self._dev_l3_a_cap = self.DEVICE_L3_A_CAP
+        self._dev_l3_a2_cap = self.DEVICE_L3_A2_CAP
+        self._l3_choice = None          # auto-tune result ("device"/"host")
+        self._l3_reason = None          # why, when decided without timing
+        self._l3_model = None           # amortization-model inputs
         # the pipelined streams run two batches on worker threads; counter
         # read-modify-writes must not interleave (#pragma omp atomic
         # analogue, mapping.c:1732-1750)
@@ -556,23 +565,263 @@ class Mapper:
             yield from stage2(stage1(in_p1))
 
     # ------------------------------------------------------------------
-    def _candidates(self, entries, opts) -> cb.HitBatch:
+    # device-L3 plane capacities (expansion / post-region-filter /
+    # emitted); grown in powers of two on overflow up to the max, then
+    # host fallback
+    DEVICE_L3_A_CAP = 1 << 21
+    DEVICE_L3_A2_CAP = 1 << 17
+    DEVICE_L3_A_CAP_MAX = 1 << 24
+    DEVICE_L3_H_CAP = 1 << 18
+
+    def _l3_autotune(self, entries, opts) -> bool:
+        """Pick the faster L3 path by timing both once (the first device
+        call, which ships the index and builds the kernels, excluded)."""
+        if self._l3_choice is not None:
+            return self._l3_choice == "device"
+        if not self._device_l3_ok(entries, opts):
+            return False                  # stay undecided until eligible
+        # an out-of-memory (postings that do not fit next to the pass-1
+        # planes) is a permanent host verdict, not a crash
+        try:
+            if self._candidates_device(entries, opts) is None:
+                self._l3_choice = "host"
+                return False
+            t0 = time.time()
+            self._candidates_device(entries, opts)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t_dev = time.time() - t0
+        except torch.OutOfMemoryError:
+            self._bump(device_l3_fallbacks=1)
+            self._l3_choice = "host"
+            self._dev_l3 = None
+            return False
+        saved, self.cfg.device_candidates = self.cfg.device_candidates, False
+        t0 = time.time()
+        try:
+            sub = entries[: max(len(entries) // 4, 1)]
+            for st in (0, 1):
+                if not (self.cfg.strand_mask >> st) & 1:
+                    continue
+                ab = cb.anchors_batch(
+                    sub, self.index, st,
+                    collapse=opts.anchor_list.collapse,
+                    list_cutoff=self.index.list_cutoff,
+                    use_region_counts=opts.anchor_list.use_region_counts)
+                cb.hit_list_batch(sub, self.index, ab, opts.hit_list,
+                                  self.cfg)
+        finally:
+            self.cfg.device_candidates = saved
+        t_host = (time.time() - t0) * (len(entries) / max(len(sub), 1))
+        self._l3_choice = "device" if t_dev < t_host else "host"
+        if self._l3_model is not None:   # measured verdict for the stats
+            self._l3_model["t_dev_batch"] = round(t_dev, 3)
+            self._l3_model["t_host_batch"] = round(t_host, 3)
+        return self._l3_choice == "device"
+
+    def _device_l3_ok(self, entries, opts) -> bool:
+        """Static eligibility for the on-device candidate path (int32
+        capacity contract, ops/candidates_device.py)."""
+        if not self.cfg.device_candidates:
+            return False
+        if any(e.sqf is not None for e in entries):
+            return False      # seed-qual-filter runs on the host path
+        if self.index.total_len >= (1 << 31):
+            return False
+        if len(entries) > (1 << 12):
+            return False
+        if opts.hit_list.match_mode == 3:          # paired heavy-mp path
+            return False
+        # no region-table size gate: past DENSE_REGION_TABLE_MAX entries
+        # the kernels switch to the sparse sort formulation.  The one-time
+        # CSR ship to the device must amortize: past the immediate budget
+        # the decision is a lazy ski-rental crossover — ship once the
+        # host-L3 seconds already spent (or projected from an
+        # expected_reads hint) exceed the estimated ship cost times the
+        # amortize factor.
+        if self.cfg.device_candidates != True:  # noqa: E712  ("auto")
+            ship_bytes = 4 * sum(
+                len(self.index.positions[sn]) + len(self.index.offsets[sn])
+                for sn in range(len(self.index.offsets)))
+            est = ship_bytes / self._ship_bandwidth()
+            spent = (self.tel.stages["anchor_list"].secs
+                     + self.tel.stages["hit_list"].secs)
+            # a later batch refreshes the inputs and keeps the measured
+            # verdict (t_dev_batch, t_host_batch, ship_secs_actual)
+            self._l3_model = {
+                **(self._l3_model or {}),
+                "ship_bytes": ship_bytes,
+                "ship_est_secs": round(est, 2),
+                "host_l3_secs_spent": round(spent, 2),
+                "amortize_factor": self.cfg.device_l3_amortize_factor,
+            }
+            if ship_bytes > self.cfg.device_l3_hbm_budget_bytes:
+                self._l3_choice = "host"
+                self._l3_reason = (
+                    f"postings {ship_bytes / 1e9:.1f}GB exceed "
+                    f"{self.cfg.device_l3_hbm_budget_bytes / 1e9:.0f}GB "
+                    "HBM residency budget")
+                return False
+            if est > self.cfg.device_l3_ship_budget_secs:
+                bar = est * self.cfg.device_l3_amortize_factor
+                reads_seen = self.stats["reads"]
+                if self.cfg.expected_reads and reads_seen:
+                    per_read = spent / reads_seen
+                    projected = per_read * float(self.cfg.expected_reads)
+                    self._l3_model["host_l3_secs_projected"] = \
+                        round(projected, 2)
+                    if projected < bar:
+                        # enough batches measured -> the projection is
+                        # stable; make the verdict permanent
+                        if reads_seen >= 4096:
+                            self._l3_choice = "host"
+                        self._l3_reason = (
+                            f"projected host L3 {projected:.1f}s over "
+                            f"{self.cfg.expected_reads} reads < "
+                            f"{bar:.0f}s amortized ship")
+                        return False
+                elif spent < bar:
+                    self._l3_reason = (
+                        f"deferred ship: host L3 spent {spent:.1f}s < "
+                        f"{bar:.0f}s (ski-rental crossover, "
+                        f"ship ~{est:.0f}s)")
+                    return False
+                self._l3_reason = None   # crossover reached: ship below
+        return True
+
+    def _ship_bandwidth(self) -> float:
+        """Measured host->device bytes/s (one 32 MB probe per process and
+        device type)."""
+        kind = self.device.type
+        if kind not in _SHIP_BW:
+            probe = torch.ones(1 << 25, dtype=torch.int8)
+            dst = torch.empty_like(probe, device=self.device)
+            dst[: 1 << 20].copy_(probe[: 1 << 20])          # warm path
+            if kind == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.time()
+            dst.copy_(probe)
+            if kind == "cuda":
+                torch.cuda.synchronize(self.device)
+            _SHIP_BW[kind] = max(probe.numel() / max(time.time() - t0, 1e-6),
+                                 1.0)
+        return _SHIP_BW[kind]
+
+    def _candidates_device(self, entries, opts):
+        """The on-device L3: equal to the host path, with whole-batch host
+        fallback when a capacity maxes out (counted)."""
+        cdv = candidates_device
+        if self._dev_l3 is None:
+            _t0 = time.time()
+            self._dev_l3 = cdv.DeviceL3Index.from_host(self.index,
+                                                       self.device)
+            if self._l3_model is not None:
+                self._l3_model["ship_secs_actual"] = \
+                    round(time.time() - _t0, 2)
+        B = len(entries)
+        R = _round_up(max(e.read_len for e in entries), 16)
+        codes = {0: np.zeros((B, R), np.int8), 1: np.zeros((B, R), np.int8)}
+        rlen = np.zeros(B, np.int32)
+        minpos = np.zeros(B, np.int32)
+        wlen = np.zeros(B, np.int32)
+        thr = np.zeros(B, np.int32)
+        p = self.cfg.params
+        t = opts.hit_list.threshold
+        for b, e in enumerate(entries):
+            codes[0][b, :e.read_len] = e.read[0]
+            codes[1][b, :e.read_len] = e.read[1]
+            rlen[b] = e.read_len
+            minpos[b] = e.min_kmer_pos
+            wlen[b] = e.window_len
+            if t >= 0:
+                thr[b] = int(min(e.read_len, e.window_len) * p.match
+                             * (t / 100.0))
+        lc = min(int(self.index.list_cutoff), 0x7FFFFFFF)
+        n_regions = (self.index.total_len >> cb.REGION_BITS) + 1
+
         parts = []
         for st in (0, 1):
             if not (self.cfg.strand_mask >> st) & 1:
                 continue
-            # region_counts ride inside the fused native anchor
-            # construction (anchors_from_csr) when available, so they
-            # are accounted under the anchor_list stage timer
-            with self.tel.stage("anchor_list"):
-                ab = cb.anchors_batch(
-                    entries, self.index, st,
+            while True:
+                a_cap = self._dev_l3_a_cap
+                a2_cap = self._dev_l3_a2_cap
+                out = cdv.device_candidates(
+                    codes[st], rlen, minpos, wlen, thr, self._dev_l3,
+                    a_cap=a_cap, a2_cap=a2_cap,
+                    h_cap=self.DEVICE_L3_H_CAP,
+                    n_regions=n_regions,
+                    use_region_counts=opts.anchor_list.use_region_counts,
+                    region_bits=cb.REGION_BITS,
+                    region_overlap=cb.REGION_OVERLAP,
                     collapse=opts.anchor_list.collapse,
-                    list_cutoff=self.index.list_cutoff,
-                    use_region_counts=opts.anchor_list.use_region_counts)
-            with self.tel.stage("hit_list"):
-                parts.append(cb.hit_list_batch(entries, self.index, ab,
-                                               opts.hit_list, self.cfg))
+                    gapless=opts.hit_list.gapless,
+                    match_mode=opts.hit_list.match_mode,
+                    threshold=float(t),
+                    match=p.match, b_gap_open=p.b_gap_open,
+                    b_gap_extend=p.b_gap_extend,
+                    list_cutoff=lc,
+                    num_contigs=self.index.num_contigs)
+                if not bool(out["overflow"]):
+                    break
+                grew = False
+                if int(out["n_total"]) > a_cap and \
+                        a_cap < self.DEVICE_L3_A_CAP_MAX:
+                    self._dev_l3_a_cap = a_cap << 1
+                    grew = True
+                if int(out["n_survivors"]) > a2_cap and \
+                        a2_cap < self.DEVICE_L3_A_CAP_MAX:
+                    self._dev_l3_a2_cap = a2_cap << 1
+                    grew = True
+                if not grew:
+                    self._bump(device_l3_fallbacks=1)
+                    return None                    # host fallback
+            n = int(out["n"])
+            cols = dict(zip(cdv.COLUMNS, torch.stack(
+                [out[f][:n] for f in cdv.COLUMNS]).cpu().numpy()))
+            order = np.lexsort((cols["g_off"], cols["cn"], cols["rid"]))
+            parts.append(cb.HitBatch(
+                rid=cols["rid"][order].astype(np.int32),
+                st=np.full(n, st, np.int8),
+                cn=cols["cn"][order].astype(np.int32),
+                g_off=cols["g_off"][order].astype(np.int64),
+                w_len=cols["w_len"][order].astype(np.int32),
+                score_window_gen=cols["score_window_gen"][order]
+                .astype(np.int32),
+                matches=cols["matches"][order].astype(np.int32),
+                score_max=cols["score_max"][order].astype(np.int32),
+                anchor_x=cols["anchor_x"][order].astype(np.int64),
+                anchor_y=cols["anchor_y"][order].astype(np.int64),
+                anchor_length=cols["anchor_length"][order].astype(np.int32),
+                anchor_width=cols["anchor_width"][order].astype(np.int32)))
+        return parts
+
+    def _candidates(self, entries, opts) -> cb.HitBatch:
+        parts = None
+        use_device = self.cfg.device_candidates
+        if use_device == "auto":
+            use_device = self._l3_autotune(entries, opts)
+        if use_device and self._device_l3_ok(entries, opts):
+            with self.tel.stage("anchor_list"):
+                parts = self._candidates_device(entries, opts)
+        if parts is None:
+            parts = []
+            for st in (0, 1):
+                if not (self.cfg.strand_mask >> st) & 1:
+                    continue
+                # region_counts ride inside the fused native anchor
+                # construction (anchors_from_csr) when available, so they
+                # are accounted under the anchor_list stage timer
+                with self.tel.stage("anchor_list"):
+                    ab = cb.anchors_batch(
+                        entries, self.index, st,
+                        collapse=opts.anchor_list.collapse,
+                        list_cutoff=self.index.list_cutoff,
+                        use_region_counts=opts.anchor_list
+                        .use_region_counts)
+                with self.tel.stage("hit_list"):
+                    parts.append(cb.hit_list_batch(entries, self.index, ab,
+                                                   opts.hit_list, self.cfg))
         merged = cb.HitBatch(**{
             f: np.concatenate([getattr(h, f) for h in parts])
             for f in ("rid", "st", "cn", "g_off", "w_len",
@@ -653,7 +902,7 @@ class Mapper:
                           for w in wlen_cfg], np.int64)
         order_key = np.lexsort((np.arange(len(idxs)), st, rid))
         suppressed = np.zeros(len(idxs), bool)
-        from shrimp_tpu import native as _native
+        from shrimp_tpu_torch import native as _native
         _clib = _native.load_candidates()
         if _clib is not None and hasattr(_clib, "pass1_suppress"):
             import ctypes as _ct
@@ -745,7 +994,7 @@ class Mapper:
                                 + _concat_aranges(out_n))
                         sel_rows = out64[take]
             if sel_rows is None:
-                from shrimp_tpu.utils import extheap
+                from shrimp_tpu_torch.utils import extheap
                 sel_list = []
                 for g in range(len(uniq_r)):
                     sel_list.extend(extheap.topk_select(
@@ -903,7 +1152,7 @@ class Mapper:
         cs_posteriors: dict[int, tuple[float, str]] = {}
         cs_renders: dict[int, tuple[str, str]] = {}
         if cfg.colour_space:
-            from shrimp_tpu.ops import post_sw as post_sw_mod
+            from shrimp_tpu_torch.ops import post_sw as post_sw_mod
             gb_np, qr4 = ctx["gb"], ctx["qr4"]
             items = []
             item_rows = []
@@ -1094,7 +1343,7 @@ class Mapper:
         if cfg.sam_read_group_name:
             rec.tags.append(f"RG:Z:{cfg.sam_read_group_name}")
         if cfg.extra_sam_fields and fh is not None:
-            from shrimp_tpu.io import legacy
+            from shrimp_tpu_torch.io import legacy
             db, qr = self.render_hit_alignment(re_e, fh)
             es = legacy.alignment_edit_string(db, qr)
             if fh.gen_st == 1:

@@ -1,21 +1,22 @@
 """The PyTorch port's gmapper entry point (`shrimp_tpu_torch.gmapper.main`),
-run in-process on the CPU."""
+run in-process on the CPU, which it maps on only when asked."""
 
 import contextlib
 import io
 import os
 
 import pytest
+import torch
 
 from shrimp_tpu_torch import gmapper
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
-def run(args):
+def run(args, device="cpu"):
     so, se = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
-        rc = gmapper.main(["gmapper"] + list(args))
+        rc = gmapper.main(["gmapper"] + list(args), device=device)
     return rc, so.getvalue(), se.getvalue()
 
 
@@ -98,7 +99,8 @@ def test_colour_space_and_gapless_goldens(case):
     so, se = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
         rc = gmapper.main([prog] + flags + [os.path.join(GOLDEN, reads),
-                                            os.path.join(GOLDEN, genome)])
+                                            os.path.join(GOLDEN, genome)],
+                          device="cpu")
     assert rc == 0, se.getvalue()[-2000:]
     assert body(so.getvalue()) == golden_body(gold)
 
@@ -119,3 +121,30 @@ def test_colour_space_options_refused_in_letter_space(flags):
     assert rc == 1
     assert "is a colour-space option" in err
     assert out == ""
+
+
+def test_maps_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a CUDA device and without a request for the CPU the CLI
+    exits 1 before any output; SHRIMP_TPU_TORCH_DEVICE=cpu maps there."""
+    monkeypatch.delenv("SHRIMP_TPU_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["-Q", os.path.join(GOLDEN, "golden_reads.fq"),
+            os.path.join(GOLDEN, "golden_genome.fa")]
+    rc, out, err = run(args, device=None)
+    assert rc == 1
+    assert "no CUDA device" in err
+    assert out == ""
+    monkeypatch.setenv("SHRIMP_TPU_TORCH_DEVICE", "cpu")
+    rc, out, err = run(args, device=None)
+    assert rc == 0, err[-2000:]
+    assert "PyTorch port on cpu" in err
+    assert body(out) == golden_body("golden_unpaired.sam")
+
+
+def test_reports_the_l3_path():
+    """-D prints the L3 verdict of the mapper and its fallback count in
+    the statistics block."""
+    rc, out, err = run(["-Q", "-D", os.path.join(GOLDEN, "golden_reads.fq"),
+                        os.path.join(GOLDEN, "golden_genome.fa")])
+    assert rc == 0, err[-2000:]
+    assert "L3 path:" in err and "Device-L3 fallbacks:" in err

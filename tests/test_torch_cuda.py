@@ -6,7 +6,8 @@ on a GPU host without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The build tests run everywhere: a failed build raises and never falls
-back to the plain version."""
+back to the plain version, and the K10 wrapper refuses an index that is
+not on a CUDA device."""
 
 import os
 import stat
@@ -15,17 +16,21 @@ import numpy as np
 import pytest
 import torch
 
-from shrimp_tpu import index as gindex
-from shrimp_tpu.io import fastx
-from shrimp_tpu.ops.params import SWParams
-from shrimp_tpu.pipeline.candidates import cs_read_ls4
-from shrimp_tpu.pipeline.options import MapperConfig
-from shrimp_tpu_torch import _build, gmapper
+from shrimp_tpu_torch import _build, dna, gmapper
+from shrimp_tpu_torch import index as gindex
+from shrimp_tpu_torch import seeds as seedmod
+from shrimp_tpu_torch.io import fastx
+from shrimp_tpu_torch.ops import candidates_device as tcd
 from shrimp_tpu_torch.ops import sw_full as tsf
 from shrimp_tpu_torch.ops import sw_full_cs as tcs
 from shrimp_tpu_torch.ops import sw_gapless as tsg
 from shrimp_tpu_torch.ops import sw_vector as tsv
+from shrimp_tpu_torch.ops.params import SWParams
+from shrimp_tpu_torch.pipeline import candidates as cand
+from shrimp_tpu_torch.pipeline import candidates_batch as cb
+from shrimp_tpu_torch.pipeline.candidates import cs_read_ls4
 from shrimp_tpu_torch.pipeline.mapper import Mapper
+from shrimp_tpu_torch.pipeline.options import MapperConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LS = SWParams.letter_space()
@@ -317,6 +322,119 @@ def test_goldens_through_the_kernels(cuda_device, genome, reads, gold):
         assert lines == [ln.rstrip("\n") for ln in fh
                          if not ln.startswith("@")]
     assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
+
+
+def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
+               st=0, threshold=55.0):
+    """A random three-contig index and device_candidates' read arrays for
+    one strand of reads drawn from it (up to two substitutions each)."""
+    rng = np.random.default_rng(seed)
+    idx = gindex.build_index(
+        [fastx.Contig(name=f"c{i}",
+                      codes=rng.integers(0, 4, contig_len).astype(np.int8))
+         for i in range(3)],
+        seedmod.make_seed_set(None, use_hashing=use_hashing))
+    reads = []
+    for i in range(n_reads):
+        p = int(rng.integers(0, len(idx.genome) - 50))
+        r = idx.genome[p:p + 50].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            q = int(rng.integers(0, 50))
+            r[q] = (r[q] + int(rng.integers(1, 4))) % 4
+        if rng.random() < 0.5:
+            r = dna.reverse_complement(r)
+        reads.append((f"r{i}", dna.decode(r), None))
+    cfg = MapperConfig(qual_delta=64)
+    entries = cand.prepare_reads(reads, cfg, idx.seed_set.min_span)
+    B = len(entries)
+    codes = np.zeros((B, 64), np.int8)
+    rlen, minpos, wlen, thr = (np.zeros(B, np.int32) for _ in range(4))
+    for b, e in enumerate(entries):
+        codes[b, :e.read_len] = e.read[st]
+        rlen[b], minpos[b], wlen[b] = e.read_len, e.min_kmer_pos, e.window_len
+        if threshold >= 0:
+            thr[b] = int(min(e.read_len, e.window_len) * cfg.params.match
+                         * (threshold / 100.0))
+    return idx, (codes, rlen, minpos, wlen, thr)
+
+
+# id -> (_l3_inputs kwargs, device_candidates keywords)
+L3_CASES = {
+    "dense_regions": ({"seed": 3}, {"use_region_counts": True}),
+    "dense_regions_rc": ({"seed": 3, "st": 1}, {"use_region_counts": True}),
+    "sparse_regions": ({"seed": 23}, {"use_region_counts": True,
+                                      "dense_region_cap": 0}),
+    "collapse_off": ({"seed": 29}, {"use_region_counts": True,
+                                    "collapse": False}),
+    "hashed": ({"seed": 5, "use_hashing": True}, {}),
+    "gapless": ({"seed": 11}, {"match_mode": 1, "gapless": True}),
+    "match_mode_1": ({"seed": 9}, {"match_mode": 1}),
+    "list_cutoff": ({"seed": 17, "contig_len": 8_000}, {"list_cutoff": 2}),
+    "absolute_threshold": ({"seed": 37, "threshold": -300.0},
+                           {"threshold": -300.0}),
+    "overflow": ({"seed": 13}, {"a_cap": 256}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(L3_CASES))
+def test_candidates_device_equals_plain(cuda_device, case):
+    """K10 on the card against its plain version: every output exact."""
+    inp_kw, kw = L3_CASES[case]
+    idx, args = _l3_inputs(**inp_kw)
+    kw = {"a_cap": 1 << 21, "a2_cap": 1 << 17, "h_cap": 1 << 18,
+          "n_regions": (idx.total_len >> cb.REGION_BITS) + 1,
+          "num_contigs": idx.num_contigs, **kw}
+    before = tcd.LAUNCHES.value
+    got = tcd.device_candidates(
+        *args, tcd.DeviceL3Index.from_host(idx, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tcd.LAUNCHES.value == before + 1
+    want = tcd.device_candidates(
+        *args, tcd.DeviceL3Index.from_host(idx, "cpu"), **kw)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+    assert bool(got["overflow"]) == (case == "overflow")
+    assert int(got["n"]) > 0
+
+
+def test_candidates_device_kernels_refuse_a_cpu_index():
+    """The K10 wrapper launches on a CUDA index or raises; it never runs
+    the plain version."""
+    idx, args = _l3_inputs(3, n_reads=8)
+    tensors = [torch.from_numpy(a) for a in args]
+    with pytest.raises(ValueError, match="CUDA index"):
+        tcd.device_candidates_cuda(
+            *tensors, tcd.DeviceL3Index.from_host(idx, "cpu"), a_cap=1 << 12,
+            a2_cap=1 << 12, h_cap=1 << 12, num_contigs=idx.num_contigs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genome,reads,gold,colour", [
+    ("golden_genome.fa", "golden_reads.fq", "golden_unpaired.sam", False),
+    ("med_genome.fa", "med_reads.fq", "med_ls.sam", False),
+    ("golden_genome.fa", "golden_reads_cs.fq", "golden_cs.sam", True),
+])
+def test_goldens_through_device_candidates(cuda_device, genome, reads, gold,
+                                           colour):
+    idx = gindex.build_index(
+        list(fastx.iter_contigs(os.path.join(GOLDEN, genome))),
+        colour_space=colour)
+    m = Mapper(idx, MapperConfig(params=CS if colour else LS,
+                                 colour_space=colour,
+                                 qual_delta=33 if colour else 64,
+                                 device_candidates=True), device=cuda_device)
+    recs = [(r.name, r.seq, r.qual)
+            for r in fastx.iter_reads(os.path.join(GOLDEN, reads))]
+    before = tcd.LAUNCHES.value
+    lines = [rec.line() for e, hits in m.map_batch(recs)
+             for rec in m.sam_records(e, hits)]
+    with open(os.path.join(GOLDEN, gold)) as fh:
+        assert lines == [ln.rstrip("\n") for ln in fh
+                         if not ln.startswith("@")]
+    assert tcd.LAUNCHES.value > before
+    assert m.stats["device_l3_fallbacks"] == 0
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

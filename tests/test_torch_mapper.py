@@ -1,6 +1,7 @@
 """The PyTorch port's unpaired letter-space Mapper on the CPU: byte-equal
 SAM against the SHRiMP2 goldens and against the JAX Mapper, and its
-device state against the JAX mapper's resident plane."""
+device state against the JAX mapper's resident plane.  Each package maps
+with its own index, built from the same contigs."""
 
 import os
 
@@ -8,13 +9,16 @@ import numpy as np
 import pytest
 import torch
 
-from shrimp_tpu import dna
-from shrimp_tpu import index as gindex
-from shrimp_tpu.io import fastx
-from shrimp_tpu.ops.params import SWParams
+from shrimp_tpu import index as jindex
+from shrimp_tpu.io import fastx as jfastx
 from shrimp_tpu.pipeline.mapper import Mapper as JaxMapper
-from shrimp_tpu.pipeline.options import MapperConfig
+from shrimp_tpu.pipeline.options import MapperConfig as JaxConfig
+from shrimp_tpu_torch import dna
+from shrimp_tpu_torch import index as gindex
+from shrimp_tpu_torch.io import fastx
+from shrimp_tpu_torch.ops.params import SWParams
 from shrimp_tpu_torch.pipeline.mapper import DeviceIndex, Mapper
+from shrimp_tpu_torch.pipeline.options import MapperConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -32,6 +36,11 @@ GOLDENS = {
 def _index(name):
     return gindex.build_index(
         list(fastx.iter_contigs(os.path.join(GOLDEN, name))))
+
+
+def _jax_index(name):
+    return jindex.build_index(
+        list(jfastx.iter_contigs(os.path.join(GOLDEN, name))))
 
 
 def _reads(name):
@@ -67,18 +76,22 @@ def test_map_stream_equals_map_batch():
     idx = _index("golden_genome.fa")
     reads = _reads("golden_reads.fq")
     want = _golden_body("golden_unpaired.sam")
-    m = Mapper(idx, MapperConfig(qual_delta=64))
+    m = Mapper(idx, MapperConfig(qual_delta=64), device="cpu")
     assert _lines(m, m.map_stream(iter(reads), batch_size=48)) == want
     assert _lines(m, m.map_stream(iter(reads), batch_size=48,
                                   n_workers=2)) == want
 
 
 def _random_corpus(seed=5, n=48):
+    """(port index, JAX index, reads) of one random two-contig genome."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, 30000).astype(np.int8)
     genome[12000:12300] = genome[2000:2300]          # a repeat
-    idx = gindex.build_index([fastx.Contig(name="c1", codes=genome[:18000]),
-                              fastx.Contig(name="c2", codes=genome[18000:])])
+    parts = (("c1", genome[:18000]), ("c2", genome[18000:]))
+    idx = gindex.build_index([fastx.Contig(name=n_, codes=c)
+                              for n_, c in parts])
+    jidx = jindex.build_index([jfastx.Contig(name=n_, codes=c)
+                               for n_, c in parts])
     reads = []
     for i in range(n):
         L = int(rng.integers(40, 90))
@@ -92,7 +105,7 @@ def _random_corpus(seed=5, n=48):
         if rng.random() < 0.5:
             r = dna.reverse_complement(r)
         reads.append((f"r{i:03d}", dna.decode(r), "h" * len(r)))
-    return idx, reads
+    return idx, jidx, reads
 
 
 @pytest.mark.parametrize("options", [
@@ -103,46 +116,38 @@ def _random_corpus(seed=5, n=48):
      "extra_sam_fields": True, "sam_read_group_name": "rg1"},
 ], ids=["default", "unbanded_local", "strata_xf"])
 def test_same_sam_as_jax_mapper(options):
-    idx, reads = _random_corpus()
+    idx, jidx, reads = _random_corpus()
     lines = []
-    for cls in (Mapper, JaxMapper):
-        cfg = MapperConfig(qual_delta=64)
+    for make, config in ((lambda cfg: Mapper(idx, cfg, device="cpu"),
+                          MapperConfig),
+                         (lambda cfg: JaxMapper(jidx, cfg), JaxConfig)):
+        cfg = config(qual_delta=64)
         for k, v in options.items():
             setattr(cfg, k, v)
-        m = cls(idx, cfg)
+        m = make(cfg)
         lines.append(_lines(m, m.map_batch(reads)))
     assert lines[0] == lines[1]
     assert len(lines[0]) >= len(reads) // 2
 
 
 def test_device_index_equals_jax_plane():
-    idx = _index("med_genome.fa")
-    dix = DeviceIndex.from_index(idx, "cpu")
-    want = np.asarray(JaxMapper(idx, MapperConfig())._genome_dev_plane())
+    dix = DeviceIndex.from_index(_index("med_genome.fa"), "cpu")
+    want = np.asarray(JaxMapper(_jax_index("med_genome.fa"),
+                                JaxConfig())._genome_dev_plane())
     assert dix.plane.dtype == torch.int8
     assert np.array_equal(dix.plane.numpy(), want)
     assert dix.contig_offsets.dtype == torch.int64
-    assert dix.contig_offsets.tolist() == [int(o)
-                                           for o in idx.contig_offsets]
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("device_candidates", True, "item 7"),
-])
-def test_paths_outside_the_slice_raise(field, value, item):
-    cfg = MapperConfig(qual_delta=64)
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=item):
-        Mapper(_index("golden_genome.fa"), cfg)
+    assert dix.contig_offsets.tolist() == [
+        int(o) for o in _index("med_genome.fa").contig_offsets]
 
 
 def test_gapless_option_set_equals_jax():
     """An option set with a gapless pass 1 (the sw_gapless diagonal score
     in place of the vector filter) maps as the JAX Mapper does."""
-    idx, reads = _random_corpus(seed=8)
+    idx, jidx, reads = _random_corpus(seed=8)
     lines = []
-    for cls in (Mapper, JaxMapper):
-        m = cls(idx, MapperConfig(qual_delta=64))
+    for m in (Mapper(idx, MapperConfig(qual_delta=64), device="cpu"),
+              JaxMapper(jidx, JaxConfig(qual_delta=64))):
         opts = m.cfg.unpaired_options()
         opts[0].pass1.gapless = True
         lines.append(_lines(m, m.map_batch(reads, options=opts)))
