@@ -10,7 +10,9 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
   2. build    nvcc builds the five kernel sources of csrc/ (sm_90a), one
               nvcc process per source, all started together
   3. kernels  each kernel against its plain PyTorch version on random
-              inputs (pads, asymmetric gaps, row-0 plane, local/glocal,
+              inputs (pads, asymmetric gaps, row-0 plane, local/glocal;
+              for pass 1 also G below 32 and G = 1, 1,000-row reads, pad
+              rows inside a read and at row 0, a positive mismatch;
               revcmpl, the goldens' band shapes, a wide-jump band; in
               colour space also per-row crossovers, indel taboo, N
               codes, a band jumping past the shift clip and the full
@@ -24,8 +26,9 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
   5. kernels-l3  the on-device candidate generation (K10) against its
               plain version on random small indexes: dense and sparse
               region counts, collapse on and off, -H hashing, gapless,
-              match mode 1, a list cut-off, an absolute threshold and one
-              forced overflow; every output column exactly equal
+              match mode 1, a list cut-off, an absolute threshold, cuts
+              at a_cap, a2_cap and h_cap, and reads too large for shared
+              memory (the global-memory tier); every output exactly equal
   6. goldens-l3  golden_unpaired, med_ls and golden_cs mapped with
               device_candidates=True, byte-equal to the reference SAM
   7. size     the main path at a real size: the port's generator
@@ -41,8 +44,9 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
   8. size-l3  the same index and reads with device_candidates=True: the
               CSR postings resident on the card, K10 for every batch; SAM
               lines and windows/read equal to the size run's; stage split,
-              ship, peak memory, capacity growth, fallbacks; the same
-              profiled warm run; what "auto"
+              ship, peak memory, capacity growth, fallbacks, K10's host
+              syncs per strand call (at most 2) and its largest plane;
+              the same profiled warm run; what "auto"
               chooses on the first two batches; K10 timed against its
               plain version on the largest call
   9. size-cs  the colour-space path on the same contigs: a colour-space
@@ -319,6 +323,32 @@ def _pass1_case(rng, B: int, G: int, R: int):
     return genome, read, row0
 
 
+def _windows_case(rng, B: int, G: int, R: int, pads: int = 0,
+                  row0_pad: bool = False):
+    """Windows with GENOME_PAD past a random wlen, reads cut from them
+    (some longer than their window), `pads` pad rows inside each read,
+    row 0 a pad in every other read, and a row-0 plane."""
+    genome = rng.integers(0, 5, (B, G)).astype(np.int8)
+    wlen = rng.integers(max(G // 2, 1), G + 1, B).astype(np.int32)
+    for b in range(B):
+        genome[b, wlen[b]:] = GENOME_PAD
+    read = np.full((B, R), READ_PAD, np.int8)
+    for b in range(B):
+        L = int(rng.integers(1, R + 1))
+        s = int(rng.integers(0, max(int(wlen[b]) - L, 0) + 1))
+        seg = genome[b, s:s + L]
+        read[b, :len(seg)] = np.where(seg < 0, 0, seg)
+        read[b, len(seg):L] = rng.integers(0, 4, L - len(seg))
+        for _ in range(int(rng.integers(0, 4))):
+            read[b, int(rng.integers(L))] = rng.integers(0, 4)
+        for _ in range(pads):
+            read[b, int(rng.integers(L))] = READ_PAD
+    if row0_pad:
+        read[::2, 0] = READ_PAD
+    row0 = rng.integers(0, 4, (B, G)).astype(np.int8)
+    return genome, read, wlen, row0
+
+
 def _pass2_case(rng, B: int, G: int, R: int, rlen: int, W: int):
     """Reads drawn from their windows with mutations, and compute_band
     bands of anchors inside the window, cut to width <= W."""
@@ -395,6 +425,37 @@ def phase_kernels() -> None:
             if err:
                 raise AssertionError(f"sw_vector gather G={G} R={R}: {err}")
             n += 1
+    # the one-thread-per-pair sweep's edges: G below 32 and G = 1, reads
+    # of 1,000 rows (row boundaries in global scratch), pad rows inside a
+    # read and at row 0 under a row-0 plane, and a positive mismatch (no
+    # stop at the window's length); windows cut at wlen, then given whole
+    odd = SWParams(match=3, mismatch=1, a_gap_open=-2, a_gap_extend=-1,
+                   b_gap_open=-2, b_gap_extend=-1)
+    for B, G, R, params, pads, row0_pad in (
+            (96, 20, 24, SWParams.letter_space(), 0, False),
+            (64, 1, 8, asym, 0, False),
+            (48, 640, 1000, SWParams.letter_space(), 0, False),
+            (96, 96, 40, asym, 3, False), (96, 64, 32, asym, 2, True),
+            (96, 60, 60, odd, 0, False)):
+        genome, read, wlen, row0 = _windows_case(rng, B, G, R, pads,
+                                                 row0_pad)
+        args = [torch.from_numpy(genome.reshape(-1).copy()),
+                torch.arange(B, dtype=torch.int64) * G,
+                torch.from_numpy(wlen), torch.arange(B, dtype=torch.int32),
+                torch.zeros(B, dtype=torch.int32),
+                torch.from_numpy(read).reshape(B, 1, R)]
+        want = sw_vector.p1_gather_score_ls_plain(*args, G, params)
+        got = sw_vector.p1_gather_score_ls_cuda(
+            *[a.to(cuda) for a in args], G, params)
+        t = [torch.from_numpy(a) for a in (genome, read, row0)]
+        want2 = sw_vector.sw_score_batch(t[0], t[1], params, t[2])
+        got2 = sw_vector.sw_score_batch_cuda(t[0].to(cuda), t[1].to(cuda),
+                                             params, t[2].to(cuda))
+        err = max(max_abs_err(got, want), max_abs_err(got2, want2))
+        if err:
+            raise AssertionError(f"sw_vector B={B} G={G} R={R} pads={pads} "
+                                 f"row0_pad={row0_pad}: err {err}")
+        n += 1
     torch.cuda.synchronize()
     log(f"kernels: sw_vector equal to its plain version in {n} cases")
 
@@ -1121,9 +1182,11 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
 # on-device candidate generation (K10)
 def _l3_corpus(seed: int, n_contigs: int = 3, contig_len: int = 60_000,
                n_reads: int = 256, read_len: int = 50,
-               use_hashing: bool = False):
+               use_hashing: bool = False, repeat: int = 0):
     """A random genome's index (the port's), and the read entries of
-    reads drawn from it with up to two substitutions, from both strands."""
+    reads drawn from it with up to two substitutions, from both strands.
+    With `repeat`, that many more copies of one 2 kb stretch, and every
+    fourth read drawn from it (thousands of postings per read)."""
     from shrimp_tpu_torch import dna
     from shrimp_tpu_torch import index as gindex
     from shrimp_tpu_torch import seeds as seedmod
@@ -1131,14 +1194,20 @@ def _l3_corpus(seed: int, n_contigs: int = 3, contig_len: int = 60_000,
     from shrimp_tpu_torch.pipeline import candidates as cand
     from shrimp_tpu_torch.pipeline.options import MapperConfig
     rng = np.random.default_rng(seed)
+    contigs = [rng.integers(0, 4, contig_len).astype(np.int8)
+               for _ in range(n_contigs)]
+    if repeat:
+        unit = contigs[0][:2000].copy()
+        for k in range(repeat):
+            p = int(rng.integers(2000, contig_len - 2000))
+            contigs[k % n_contigs][p:p + 2000] = unit
     idx = gindex.build_index(
-        [fastx.Contig(name=f"c{i}",
-                      codes=rng.integers(0, 4, contig_len).astype(np.int8))
-         for i in range(n_contigs)],
+        [fastx.Contig(name=f"c{i}", codes=c) for i, c in enumerate(contigs)],
         seedmod.make_seed_set(None, use_hashing=use_hashing))
     reads = []
     for i in range(n_reads):
-        p = int(rng.integers(0, len(idx.genome) - read_len))
+        p = (int(rng.integers(0, 2000 - read_len)) if repeat and i % 4 == 0
+             else int(rng.integers(0, len(idx.genome) - read_len)))
         r = idx.genome[p:p + read_len].copy()
         for _ in range(int(rng.integers(0, 3))):
             q = int(rng.integers(0, read_len))
@@ -1171,7 +1240,8 @@ def _l3_call(idx, cfg, entries, st: int, *, threshold: float = 55.0,
         if threshold >= 0:
             thr[b] = int(min(e.read_len, e.window_len) * p.match
                          * (threshold / 100.0))
-    kw = dict(a_cap=a_cap, a2_cap=1 << 17, h_cap=1 << 18,
+    kw = dict(a_cap=a_cap, a2_cap=extra.pop("a2_cap", 1 << 17),
+              h_cap=extra.pop("h_cap", 1 << 18),
               n_regions=(idx.total_len >> cb.REGION_BITS) + 1,
               use_region_counts=use_regions, region_bits=cb.REGION_BITS,
               region_overlap=cb.REGION_OVERLAP, collapse=collapse,
@@ -1209,7 +1279,13 @@ L3_CASES = {
     "absolute threshold": ({"seed": 37}, (0,),
                            {"use_regions": True, "threshold": -300.0}),
     "forced overflow": ({"seed": 13}, (0,), {"a_cap": 256}),
+    "a2_cap cut": ({"seed": 7}, (0,), {"use_regions": True, "a2_cap": 300}),
+    "h_cap cut": ({"seed": 19}, (0,), {"h_cap": 40}),
+    "global tier": ({"seed": 41, "repeat": 100, "contig_len": 200_000,
+                     "n_reads": 64}, (0, 1), {"use_regions": True}),
 }
+# the cases cut at a capacity, which must report an overflow
+L3_CUT = ("forced overflow", "a2_cap cut", "h_cap cut")
 
 
 def phase_kernels_l3() -> None:
@@ -1222,20 +1298,25 @@ def phase_kernels_l3() -> None:
         dev_cpu = cdv.DeviceL3Index.from_host(idx, "cpu")
         for st in strands:
             args, kw = _l3_call(idx, cfg, entries, st, **call_kw)
+            tier = cdv.GLOBAL_TIER_READS.value
             got = cdv.device_candidates(*args, dev, **kw)
+            tier = cdv.GLOBAL_TIER_READS.value - tier
             want = cdv.device_candidates(*args, dev_cpu, **kw)
             err = _l3_err(got, want)
             if err:
                 raise AssertionError(f"candidates_device {name} strand {st}: "
                                      f"err {err}")
-            if name == "forced overflow" and not bool(got["overflow"]):
-                raise AssertionError("candidates_device: the forced overflow "
-                                     "was not reported")
-            if name != "forced overflow" and (bool(got["overflow"])
-                                              or int(got["n"]) == 0):
+            if bool(got["overflow"]) != (name in L3_CUT) or \
+                    int(got["n"]) == 0:
                 raise AssertionError(f"candidates_device {name}: overflow "
                                      f"{bool(got['overflow'])}, "
                                      f"{int(got['n'])} windows")
+            if (tier > 0) != (name == "global tier"):
+                raise AssertionError(f"candidates_device {name}: {tier} "
+                                     "reads in the global-memory tier")
+            if tier:
+                log(f"kernels: candidates_device {name} strand {st}: {tier} "
+                    "reads through the global-memory tier")
             n += 1
     log(f"kernels: candidates_device equal to its plain version in {n} "
         "cases")
@@ -1308,6 +1389,7 @@ def phase_size_l3(device: dict, idx, reads, size_stats: dict,
     rec = Recorder(cdv, "device_candidates_cuda", lambda a: a[0].shape[0],
                    last=True)
     reset_launches()
+    cdv.GLOBAL_TIER_READS.reset()
     with rec:
         t0 = time.time()
         results = list(mapper.map_stream(iter(reads), SIZE_BATCH))
@@ -1347,7 +1429,18 @@ def phase_size_l3(device: dict, idx, reads, size_stats: dict,
         "a_cap": [Mapper.DEVICE_L3_A_CAP, mapper._dev_l3_a_cap],
         "a2_cap": [Mapper.DEVICE_L3_A2_CAP, mapper._dev_l3_a2_cap],
         "device_l3_fallbacks": mapper.stats["device_l3_fallbacks"],
+        # reads that K10's per-read kernels took in their global tier
+        "k10_global_tier_reads": cdv.GLOBAL_TIER_READS.value,
     }
+    stats.update(k10_syncs(mapper, reads[:2 * SIZE_BATCH]))
+    # K10's device planes: the largest, against the dense (read, region)
+    # table of int32 that a per-region count would take
+    table = 4 * SIZE_BATCH * ((idx.total_len >> 11) + 1)
+    stats["k10_largest_plane_bytes"] = mapper._dev_l3_ws.largest_bytes()
+    stats["k10_region_table_bytes"] = table
+    if stats["k10_largest_plane_bytes"] >= table:
+        raise AssertionError("size-l3: K10 holds a plane as large as a "
+                             "(read, region) table")
     log("size-l3: " + json.dumps(stats))
     log(f"size-l3: {len(lines)} SAM lines and {wpr} windows/read equal to "
         "the host-candidate run's")
@@ -1374,26 +1467,95 @@ def phase_size_l3(device: dict, idx, reads, size_stats: dict,
     return launches, {"args": rec.args, "kw": {**rec.kw, **caps}}, stats
 
 
+def k10_syncs(mapper, reads: list) -> dict:
+    """Host synchronisations per K10 strand call: `reads` mapped again
+    with torch's sync debug mode on inside the Mapper's device-candidate
+    step only (its kernels' counters read-back and the copy of the
+    windows out), against the strand calls made there."""
+    import warnings
+
+    import torch
+
+    from shrimp_tpu_torch.ops import candidates_device as cdv
+    orig = mapper._candidates_device
+    n = {"syncs": 0, "calls": 0}
+
+    def counted(entries, opts):
+        calls = cdv.LAUNCHES.value
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                out = orig(entries, opts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n["syncs"] += sum("synchroniz" in str(w.message) for w in rec)
+        n["calls"] += cdv.LAUNCHES.value - calls
+        return out
+
+    mapper._candidates_device = counted
+    try:
+        for _ in mapper.map_stream(iter(reads), SIZE_BATCH):
+            pass
+    finally:
+        del mapper._candidates_device
+    per_call = n["syncs"] / max(n["calls"], 1)
+    if n["calls"] == 0 or per_call > 2:
+        raise AssertionError(f"K10: {n['syncs']} host syncs in {n['calls']} "
+                             "strand calls")
+    return {"k10_strand_calls": n["calls"], "k10_host_syncs": n["syncs"],
+            "k10_host_syncs_per_strand_call": per_call}
+
+
+def device_span(fn) -> dict:
+    """One call of `fn` under torch.profiler: the milliseconds from its
+    first kernel's start to its last one's end (the host's time before
+    the first is not in it), and each kernel's and copy's device
+    milliseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in ev:
+        key = (e.name.replace("(anonymous namespace)::", "")
+               .replace("void ", "").split("(")[0])[:48]
+        by_name[key] = round(by_name.get(key, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+                             / 1e3, 4)
+    kern = [e for e in ev if not e.name.startswith("Memcpy")]
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3 if kern else None
+    return {"device_span_ms": span, "device_ms_by_kernel": by_name}
+
+
 def time_kernels_l3(rec: dict, idx, reps: int = 5) -> dict:
     """K10 (CUDA events) against its plain version (host clock, a CPU
     index) on the largest recorded main-path call; outputs must agree."""
     from shrimp_tpu_torch.ops import candidates_device as cdv
+    import torch
     args, kw = rec["args"], rec["kw"]
     got = cdv.device_candidates_cuda(*args, **kw)
     ms = cuda_ms(lambda: cdv.device_candidates_cuda(*args, **kw), reps)
     dev_cpu = cdv.DeviceL3Index.from_host(idx, "cpu")
-    ca = _cpu(args[:5])
+    ca = [torch.as_tensor(a).cpu() for a in args[:5]]
+    kw_plain = {k: v for k, v in kw.items() if k != "workspace"}
     plain_ms, want = host_ms(
-        lambda: cdv.device_candidates_plain(*ca, dev_cpu, **kw))
+        lambda: cdv.device_candidates_plain(*ca, dev_cpu, **kw_plain))
     del dev_cpu
     err = _l3_err(got, want)
-    codes, rlen = args[0], args[1]
+    codes, rlen = ca[0], ca[1]
     dev = args[5]
     B, R = codes.shape
     total, n = int(got["n_total"]), int(got["n"])
     # valid (read, k-mer) rows of every seed: one offsets pair each
-    rl = rlen.cpu().long()
-    mp = args[2].cpu().long()
+    rl = rlen.long()
+    mp = ca[2].long()
     seed_rows = [int((rl - mp - span + 1).clamp(0, R - span + 1).sum())
                  for span in dev.spans]
     rows = sum(seed_rows)
@@ -1405,12 +1567,25 @@ def time_kernels_l3(rec: dict, idx, reps: int = 5) -> dict:
     # pairing arithmetic (40, the scan's steps not counted)
     ops = (sum(3 * len(o) * r for o, r in zip(dev.ones, seed_rows))
            + 6 * rows + 6 * total + 40 * int(got["n_survivors"]))
+    # per read: postings under a_cap and survivors under a2_cap (the
+    # workspace's read offsets), which pick K10's tiers
+    ws = kw["workspace"]
+    per_read = {}
+    for name, plane in (("postings_per_read", "kbase"),
+                        ("survivors_per_read", "abase")):
+        v = np.diff(ws.get(plane, B + 1, torch.int64, dev.device)
+                    .cpu().numpy())
+        per_read[name] = {"median": float(np.median(v)),
+                          "p99": float(np.percentile(v, 99)),
+                          "max": int(v.max())}
     out = {"candidates_device": {
         "shape": {"reads": B, "R": R, "postings": total,
                   "survivors": int(got["n_survivors"]), "windows": n,
-                  "a_cap": kw["a_cap"], "a2_cap": kw["a2_cap"]},
+                  "a_cap": kw["a_cap"], "a2_cap": kw["a2_cap"],
+                  **per_read},
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        **bound(nbytes, ops)}}
+        **bound(nbytes, ops),
+        **device_span(lambda: cdv.device_candidates_cuda(*args, **kw))}}
     if err or bool(got["overflow"]):
         raise AssertionError(f"candidates_device on main-path inputs: "
                              f"{out}, overflow {bool(got['overflow'])}")

@@ -160,7 +160,9 @@ def _lib() -> ctypes.CDLL:
         lib.sw_vector_launch.restype = ctypes.c_int
         lib.sw_vector_launch.argtypes = [
             vp, ll, vp, vp, vp, vp, vp, i, i, vp, vp, vp, i, i,
-            i, i, i, i, i, i, vp, vp]
+            i, i, i, i, i, i, vp, vp, vp]
+        lib.sw_vector_scratch_bytes.restype = ll
+        lib.sw_vector_scratch_bytes.argtypes = [i, i, i, i]
         _LIB = lib
     return _LIB
 
@@ -197,6 +199,12 @@ def _launch(plane, lo, wlen, rid, st, reads, row0, G: int,
     if B == 0:
         return out
     lib = _lib()
+    R = reads.shape[2]
+    # row boundaries of reads too long for shared memory live here
+    nbytes = lib.sw_vector_scratch_bytes(
+        B, G, R, int(row0 is not None or ls_plane is not None))
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         p = params
@@ -208,7 +216,9 @@ def _launch(plane, lo, wlen, rid, st, reads, row0, G: int,
             None if ls_plane is None else ls_plane.data_ptr(),
             None if initbp is None else initbp.data_ptr(), B, G,
             p.match, p.mismatch, p.a_gap_open, p.a_gap_extend,
-            p.b_gap_open, p.b_gap_extend, out.data_ptr(), stream)
+            p.b_gap_open, p.b_gap_extend,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            stream)
     _build.check_launch(lib, "sw_vector", rc)
     (LAUNCHES if ls_plane is None else CS_LAUNCHES).add()
     return out

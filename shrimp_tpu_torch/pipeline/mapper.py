@@ -219,6 +219,8 @@ class Mapper:
                       "device_l3_fallbacks": 0}
         self.tel = telemetry.Telemetry()
         self._dev_l3 = None
+        # K10's device planes, kept between calls (ops/candidates_device.py)
+        self._dev_l3_ws = candidates_device.L3Workspace()
         self._dev_l3_a_cap = self.DEVICE_L3_A_CAP
         self._dev_l3_a2_cap = self.DEVICE_L3_A2_CAP
         self._l3_choice = None          # auto-tune result ("device"/"host")
@@ -595,6 +597,7 @@ class Mapper:
             self._bump(device_l3_fallbacks=1)
             self._l3_choice = "host"
             self._dev_l3 = None
+            self._dev_l3_ws = candidates_device.L3Workspace()
             return False
         saved, self.cfg.device_candidates = self.cfg.device_candidates, False
         t0 = time.time()
@@ -761,7 +764,8 @@ class Mapper:
                     match=p.match, b_gap_open=p.b_gap_open,
                     b_gap_extend=p.b_gap_extend,
                     list_cutoff=lc,
-                    num_contigs=self.index.num_contigs)
+                    num_contigs=self.index.num_contigs,
+                    workspace=self._dev_l3_ws)
                 if not bool(out["overflow"]):
                     break
                 grew = False

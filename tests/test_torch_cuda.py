@@ -165,6 +165,70 @@ def test_sw_vector_row0_plane_equals_plain(cuda_device, params):
     assert torch.equal(got.cpu(), want)
 
 
+# a positive mismatch: pads past the window can raise a score, so the
+# kernel must sweep the full width there
+ODD = SWParams(match=3, mismatch=1, a_gap_open=-2, a_gap_extend=-1,
+               b_gap_open=-2, b_gap_extend=-1)
+
+
+def _windows_case(seed, B, G, R, interior_pads=0, row0_pad=False):
+    """Windows (GENOME_PAD past a random wlen) laid end to end in one
+    plane, reads cut from them (some longer than their window), pads
+    inside the reads or at row 0, and a row-0 plane."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 5, (B, G)).astype(np.int8)
+    wlen = rng.integers(max(G // 2, 1), G + 1, B).astype(np.int32)
+    for b in range(B):
+        genome[b, wlen[b]:] = tsv.GENOME_PAD
+    read = np.full((B, R), tsv.READ_PAD, np.int8)
+    for b in range(B):
+        L = int(rng.integers(1, R + 1))
+        s = int(rng.integers(0, max(int(wlen[b]) - L, 0) + 1))
+        seg = genome[b, s:s + L]
+        read[b, :len(seg)] = np.where(seg < 0, 0, seg)
+        read[b, len(seg):L] = rng.integers(0, 4, L - len(seg))
+        for _ in range(int(rng.integers(0, 4))):
+            read[b, int(rng.integers(L))] = rng.integers(0, 4)
+        for _ in range(interior_pads):
+            read[b, int(rng.integers(L))] = tsv.READ_PAD
+    if row0_pad:
+        read[::2, 0] = tsv.READ_PAD
+    row0 = rng.integers(0, 4, (B, G)).astype(np.int8)
+    return genome, read, wlen, row0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,R,params,pads,row0_pad", [
+    (96, 20, 24, LS, 0, False), (64, 1, 8, ASYM, 0, False),
+    (48, 640, 1000, LS, 0, False), (96, 96, 40, ASYM, 3, False),
+    (96, 64, 32, ASYM, 2, True), (96, 70, 50, ASYM, 0, False),
+    (96, 60, 60, ODD, 0, False), (200, 128, 56, LS, 0, False)],
+    ids=["g_below_32", "g_1", "r_1000", "interior_pads", "row0_pad",
+         "asym", "positive_mismatch", "main_path"])
+def test_sw_vector_cases_equal_plain(cuda_device, B, G, R, params, pads,
+                                     row0_pad):
+    """The one-thread-per-pair kernel through the fused gather (windows
+    cut at wlen, so the sweep stops there) and through the given-window
+    form with a row-0 plane, against the plain versions."""
+    genome, read, wlen, row0 = _windows_case(B + G + R, B, G, R, pads,
+                                             row0_pad)
+    plane = torch.from_numpy(genome.reshape(-1).copy())
+    lo = torch.arange(B, dtype=torch.int64) * G
+    args = [plane, lo, torch.from_numpy(wlen),
+            torch.arange(B, dtype=torch.int32),
+            torch.zeros(B, dtype=torch.int32),
+            torch.from_numpy(read).reshape(B, 1, R)]
+    want = tsv.p1_gather_score_ls_plain(*args, G, params)
+    got = tsv.p1_gather_score_ls_cuda(*[a.to(cuda_device) for a in args], G,
+                                      params)
+    assert torch.equal(got.cpu(), want)
+    t = [torch.from_numpy(a) for a in (genome, read, row0)]
+    want = tsv.sw_score_batch(t[0], t[1], params, t[2])
+    got = tsv.sw_score_batch_cuda(*[a.to(cuda_device) for a in t[:2]],
+                                  params, t[2].to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
 @pytest.mark.parametrize("B,G,R,rlen,W", [
@@ -180,7 +244,8 @@ def test_sw_full_equals_plain(cuda_device, loc, B, G, R, rlen, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,R", [(128, 56), (640, 408)])
+@pytest.mark.parametrize("G,R", [(128, 56), (640, 408), (20, 24),
+                                 (100, 1000)])
 def test_sw_vector_cs_gather_equals_plain(cuda_device, G, R):
     """K2-CS: colour and letter windows from fw||rc planes, the row-0
     plane made in the kernel."""
@@ -325,18 +390,26 @@ def test_goldens_through_the_kernels(cuda_device, genome, reads, gold):
 
 
 def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
-               st=0, threshold=55.0):
+               st=0, threshold=55.0, repeat=0):
     """A random three-contig index and device_candidates' read arrays for
-    one strand of reads drawn from it (up to two substitutions each)."""
+    one strand of reads drawn from it (up to two substitutions each).
+    With `repeat`, that many more copies of one 2 kb stretch, and every
+    fourth read drawn from it: reads with thousands of postings."""
     rng = np.random.default_rng(seed)
+    contigs = [rng.integers(0, 4, contig_len).astype(np.int8)
+               for _ in range(3)]
+    if repeat:
+        unit = contigs[0][:2000].copy()
+        for k in range(repeat):
+            p = int(rng.integers(2000, contig_len - 2000))
+            contigs[k % 3][p:p + 2000] = unit
     idx = gindex.build_index(
-        [fastx.Contig(name=f"c{i}",
-                      codes=rng.integers(0, 4, contig_len).astype(np.int8))
-         for i in range(3)],
+        [fastx.Contig(name=f"c{i}", codes=c) for i, c in enumerate(contigs)],
         seedmod.make_seed_set(None, use_hashing=use_hashing))
     reads = []
     for i in range(n_reads):
-        p = int(rng.integers(0, len(idx.genome) - 50))
+        p = (int(rng.integers(0, 1950)) if repeat and i % 4 == 0
+             else int(rng.integers(0, len(idx.genome) - 50)))
         r = idx.genome[p:p + 50].copy()
         for _ in range(int(rng.integers(0, 3))):
             q = int(rng.integers(0, 50))
@@ -358,6 +431,12 @@ def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
     return idx, (codes, rlen, minpos, wlen, thr)
 
 
+def _l3_kw(idx, **kw):
+    return {"a_cap": 1 << 21, "a2_cap": 1 << 17, "h_cap": 1 << 18,
+            "n_regions": (idx.total_len >> cb.REGION_BITS) + 1,
+            "num_contigs": idx.num_contigs, **kw}
+
+
 # id -> (_l3_inputs kwargs, device_candidates keywords)
 L3_CASES = {
     "dense_regions": ({"seed": 3}, {"use_region_counts": True}),
@@ -373,7 +452,14 @@ L3_CASES = {
     "absolute_threshold": ({"seed": 37, "threshold": -300.0},
                            {"threshold": -300.0}),
     "overflow": ({"seed": 13}, {"a_cap": 256}),
+    "a2_cut": ({"seed": 7}, {"use_region_counts": True, "a2_cap": 300}),
+    "h_cut": ({"seed": 19}, {"h_cap": 40}),
+    # reads past both shared-memory tiers: the global-memory tier
+    "repeats": ({"seed": 41, "repeat": 100, "contig_len": 200_000,
+                 "n_reads": 64}, {"use_region_counts": True}),
 }
+# the cases cut at a capacity, which report an overflow
+L3_CUT = {"overflow", "a2_cut", "h_cut"}
 
 
 @pytest.mark.cuda
@@ -382,10 +468,9 @@ def test_candidates_device_equals_plain(cuda_device, case):
     """K10 on the card against its plain version: every output exact."""
     inp_kw, kw = L3_CASES[case]
     idx, args = _l3_inputs(**inp_kw)
-    kw = {"a_cap": 1 << 21, "a2_cap": 1 << 17, "h_cap": 1 << 18,
-          "n_regions": (idx.total_len >> cb.REGION_BITS) + 1,
-          "num_contigs": idx.num_contigs, **kw}
+    kw = _l3_kw(idx, **kw)
     before = tcd.LAUNCHES.value
+    tiers = tcd.GLOBAL_TIER_READS.value
     got = tcd.device_candidates(
         *args, tcd.DeviceL3Index.from_host(idx, cuda_device), **kw)
     torch.cuda.synchronize()
@@ -395,8 +480,69 @@ def test_candidates_device_equals_plain(cuda_device, case):
     assert set(got) == set(want)
     for k, v in want.items():
         assert torch.equal(got[k].cpu(), v), k
-    assert bool(got["overflow"]) == (case == "overflow")
+    assert bool(got["overflow"]) == (case in L3_CUT)
     assert int(got["n"]) > 0
+    assert (tcd.GLOBAL_TIER_READS.value > tiers) == (case == "repeats")
+
+
+@pytest.mark.cuda
+def test_candidates_device_empty_batch(cuda_device):
+    idx, args = _l3_inputs(3, n_reads=8)
+    args = tuple(a[:0] for a in args)
+    kw = _l3_kw(idx, use_region_counts=True)
+    got = tcd.device_candidates(
+        *args, tcd.DeviceL3Index.from_host(idx, cuda_device), **kw)
+    want = tcd.device_candidates(
+        *args, tcd.DeviceL3Index.from_host(idx, "cpu"), **kw)
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+    assert int(got["n"]) == 0 and not bool(got["overflow"])
+
+
+@pytest.mark.cuda
+def test_candidates_device_workspace_reused_after_growth(cuda_device):
+    """A workspace serves a call with small capacities, grows for larger
+    ones, and is then reused without allocating; every call equals the
+    plain version."""
+    idx, args = _l3_inputs(13)
+    dev = tcd.DeviceL3Index.from_host(idx, cuda_device)
+    dev_cpu = tcd.DeviceL3Index.from_host(idx, "cpu")
+    ws = tcd.L3Workspace()
+    allocs = []
+    for a_cap in (256, 1 << 21, 1 << 21, 256):
+        kw = _l3_kw(idx, a_cap=a_cap, use_region_counts=True)
+        got = tcd.device_candidates(*args, dev, workspace=ws, **kw)
+        want = tcd.device_candidates(*args, dev_cpu, **kw)
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), v), (a_cap, k)
+        allocs.append(ws.allocations)
+    assert allocs[1] > allocs[0]
+    assert allocs[3] == allocs[2] == allocs[1]
+
+
+@pytest.mark.cuda
+def test_candidates_device_one_sync_per_call(cuda_device):
+    """With a warm workspace, a call synchronises with the host once (the
+    counters read-back); copying the windows out is the second."""
+    import warnings
+    idx, args = _l3_inputs(3)
+    dev = tcd.DeviceL3Index.from_host(idx, cuda_device)
+    ws = tcd.L3Workspace()
+    kw = _l3_kw(idx, use_region_counts=True)
+    tcd.device_candidates(*args, dev, workspace=ws, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = tcd.device_candidates(*args, dev, workspace=ws, **kw)
+            n = int(out["n"])
+            after_call = sum("synchroniz" in str(w.message) for w in rec)
+            torch.stack([out[f][:n] for f in tcd.COLUMNS]).cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in rec if "synchroniz" in str(w.message)]
+    assert after_call == 1 and len(syncs) == 2, [str(w.message) for w in rec]
 
 
 def test_candidates_device_kernels_refuse_a_cpu_index():
