@@ -13,11 +13,15 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               inputs (pads, asymmetric gaps, row-0 plane, local/glocal;
               for pass 1 also G below 32 and G = 1, 1,000-row reads, pad
               rows inside a read and at row 0, a positive mismatch;
-              revcmpl, the goldens' band shapes, a wide-jump band; in
-              colour space also per-row crossovers, indel taboo, N
-              codes, a band jumping past the shift clip and the full
-              band; gapless with and without the s0 override); integer
-              outputs must be exactly equal
+              revcmpl, the goldens' band shapes, a wide-jump band; for
+              pass 2 also asymmetric and positive-mismatch scoring,
+              batches of 0, 1 and 13, W 32 / 96 / 192 / 640 (every tile
+              width), 1,000-row reads (the global pointer tier), 6,000-row
+              reads (per-row inputs in the global scratch); in colour
+              space also per-row crossovers, indel taboo, N codes, a band
+              jumping past the shift clip, the full band; gapless with
+              and without the s0 override); integer outputs must be
+              exactly equal
   4. goldens  golden_unpaired / golden_long_reads / med_ls, then
               golden_cs / med_cs, mapped through the kernels, and the
               gapless golden_cs_mirna / golden_cs_ungapped /
@@ -56,6 +60,13 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               the first 1,024 reads again through the plain versions;
               each new kernel timed against its plain version (the gapless
               kernel on a random batch of the largest pass-1 launch)
+
+Each timing line gives a kernel's `ms` (CUDA events around 20 calls of
+its wrapper: where a kernel's device time is below its wrapper's host
+time, this is the host's rate); for K3+K4, K6 and K7+K8 also `device_ms`
+(each call queued behind a spin kernel, so the events see only the
+device's work), for K10 `device_span_ms` (torch.profiler: first kernel
+start to last kernel end of one call).
 
 Each kernel's entry in the kernels line carries `bound_ms`, the least
 time an H100 SXM could take for the same work on the same inputs: the
@@ -191,6 +202,25 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds of one call's device work: each call is queued
+    behind a spin kernel of about a millisecond, long enough to hide the
+    wrapper's host time, between two CUDA events.  Only for wrappers that
+    never wait on the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps
 
 
 def host_ms(fn) -> tuple[float, object]:
@@ -460,11 +490,21 @@ def phase_kernels() -> None:
     log(f"kernels: sw_vector equal to its plain version in {n} cases")
 
     # pass 2: the goldens' call shapes (B, G, R, read length, W), the
-    # full band (W = round_up(G, 32)), and a wide-jump band
+    # full band (W = round_up(G, 32), also at G = 640), a wide-jump band;
+    # the asymmetric and positive-mismatch scorings; batches that fill no
+    # whole warp (B 0, 1, 13); W 32 / 96 / 192 / 640 (tiles of 16 and 32
+    # lanes); 1,000-row reads, whose pointers take the global tier, and
+    # 6,000-row reads, whose per-row inputs stay in the global scratch
     n = 0
-    shapes = [(256, 128, 56, 50, 64), (128, 640, 408, 400, 192),
-              (512, 128, 80, 70, 64), (64, 128, 56, 50, 128)]
-    for B, G, R, rlen, W in shapes:
+    ls = SWParams.letter_space()
+    shapes = [(256, 128, 56, 50, 64, ls), (128, 640, 408, 400, 192, ls),
+              (512, 128, 80, 70, 64, ls), (64, 128, 56, 50, 128, ls),
+              (256, 128, 56, 50, 64, asym), (256, 128, 56, 50, 64, odd),
+              (0, 128, 56, 50, 64, ls), (1, 128, 56, 50, 64, ls),
+              (13, 128, 56, 50, 64, asym), (77, 128, 56, 50, 32, ls),
+              (96, 256, 100, 90, 96, odd), (16, 640, 80, 70, 640, ls),
+              (24, 1408, 1000, 1000, 64, ls), (3, 6144, 6000, 6000, 64, ls)]
+    for B, G, R, rlen, W, params in shapes:
         for loc in (True, False):
             gb, rb, rev, bxmin, bxmax = _pass2_case(rng, B, G, R, rlen, W)
             if W >= G:
@@ -473,7 +513,8 @@ def phase_kernels() -> None:
                 bxmax = np.broadcast_to((glen - 1).astype(np.int32)[:, None],
                                         (B, R)).copy()
             _check_pass2(gb, rb, rev, bxmin, bxmax, loc, W,
-                         f"B={B} G={G} R={R} W={W} local={loc}")
+                         f"B={B} G={G} R={R} W={W} local={loc} {params}",
+                         params)
             n += 1
     rng2 = np.random.default_rng(7)
     B, G, R, rlen = 32, 96, 64, 50
@@ -496,7 +537,8 @@ def phase_kernels() -> None:
     log(f"kernels: sw_full equal to its plain version in {n} cases")
 
 
-def _check_pass2(gb, rb, rev, bxmin, bxmax, loc, W, what) -> None:
+def _check_pass2(gb, rb, rev, bxmin, bxmax, loc, W, what,
+                 p=None) -> None:
     import torch
 
     from shrimp_tpu_torch.ops.params import SWParams
@@ -504,7 +546,7 @@ def _check_pass2(gb, rb, rev, bxmin, bxmax, loc, W, what) -> None:
     cuda = torch.device("cuda", 0)
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in (gb, rb, rev, bxmin, bxmax)]
-    p = SWParams.letter_space()
+    p = p or SWParams.letter_space()
     s_want, o_want = sw_full.sw_full_and_traceback_packed_plain(
         *args, p, loc, W)
     s_got, o_got = sw_full.sw_full_and_traceback_packed_cuda(
@@ -738,12 +780,16 @@ def time_kernels(args: dict, reps: int = 20) -> dict:
     plain_ms, (s_want, o_want) = host_ms(
         lambda: sw_full.sw_full_and_traceback_packed_plain(*ca))
     gb, rb, rev, bxmin, bxmax = a[:5]
+    R, W = int(rb.shape[1]), int(a[7])
     out["sw_full"] = {
         "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
-                  "R": int(rb.shape[1]), "W": int(a[7])},
+                  "R": R, "W": W,
+                  "plan": sw_full.launch_plan(int(gb.shape[1]), R, W)},
         "max_abs_err": max(max_abs_err(s_got, s_want),
                            max_abs_err(o_got, o_want)),
         "ms": ms, "plain_ms": plain_ms,
+        "device_ms": device_ms(
+            lambda: sw_full.sw_full_and_traceback_packed_cuda(*a), reps),
         **_band_bound("sw_full", (rb.cpu() != READ_PAD).sum(1), bxmin,
                       bxmax, (gb, rb, rev, bxmin, bxmax), (s_got, o_got))}
     for name, row in out.items():
@@ -906,8 +952,10 @@ def phase_kernels_cs() -> None:
         f"in {n} cases")
 
     # K7+K8: local / glocal x the main path's shapes, per-row crossovers,
-    # indel taboo, N codes, a band leaping past the shift clip, and the
-    # full band at W = round_up(G, 32)
+    # indel taboo, N codes, a band leaping past the shift clip, the full
+    # band at W = round_up(G, 32) (also at G = 640), batches that fill no
+    # whole warp, W 96 (one tile a warp), 1,000-row reads, and 6,000-row
+    # reads, whose per-row inputs stay in the global scratch
     n = 0
     cases = [
         ("anchor", dict(B=256, G=128, R=56, rlen=50, W=64), 0),
@@ -918,6 +966,14 @@ def phase_kernels_cs() -> None:
                             per_colour=True), 0),
         ("jumping band", dict(B=64, G=96, R=64, rlen=50, band="jump"), 3),
         ("full band", dict(B=128, G=128, R=56, rlen=50, band="full"), 4),
+        ("B 13", dict(B=13, G=128, R=56, rlen=50, W=64, n_rate=0.05), 2),
+        ("B 1", dict(B=1, G=96, R=64, rlen=50, band="jump"), 0),
+        ("W 96", dict(B=48, G=256, R=100, rlen=90, W=96), 0),
+        ("full band G 640", dict(B=16, G=640, R=80, rlen=70, band="full"), 0),
+        ("1,000-row reads", dict(B=8, G=1408, R=1000, rlen=1000, W=64,
+                                 per_colour=True), 0),
+        ("6,000-row reads", dict(B=3, G=6144, R=6000, rlen=6000, W=64,
+                                 per_colour=True), 4),
     ]
     for what, kw, taboo in cases:
         case = _cs_pass2_case(rng, **kw)
@@ -1138,13 +1194,16 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
     plain_ms, (s_want, o_want) = host_ms(
         lambda: sw_full_cs.sw_full_cs_and_traceback_packed_plain(*ca))
     gb, qr4, xover, rev, bxmin, bxmax = a[:6]
+    R, W = int(qr4.shape[2]), int(a[9])
     out["sw_full_cs"] = {
         "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
-                  "R": int(qr4.shape[2]), "W": int(a[9]),
-                  "taboo_len": int(a[8])},
+                  "R": R, "W": W, "taboo_len": int(a[8]),
+                  "plan": sw_full_cs.launch_plan(int(gb.shape[1]), R, W)},
         "max_abs_err": max(max_abs_err(s_got, s_want),
                            max_abs_err(o_got, o_want)),
         "ms": ms, "plain_ms": plain_ms,
+        "device_ms": device_ms(
+            lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a), reps),
         **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
                       bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
                       (s_got, o_got))}
@@ -1169,6 +1228,8 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
                   "s0": s0 is not None},
         "max_abs_err": max_abs_err(got, want), "ms": ms,
         "plain_ms": plain_ms,
+        "device_ms": device_ms(
+            lambda: sw_gapless.gapless_score_batch_cuda(*a), reps),
         **bound(_nbytes(diag, reads, s0, got),
                 OPS_PER_CELL["sw_gapless"] * cells)}
     for name, row in out.items():

@@ -15,32 +15,56 @@
 // virtual row -1 carries (NW, N, W) = (0, b_gap_open, a_gap_open) in both
 // modes; predecessors outside the previous row's packed band read the
 // border triple; out-of-band cells take the border triple, then cells
-// outside the grid take 0 (local) or NEG_INF (glocal); the best cell is
-// the row-major first strict maximum (glocal: last read row only); the
-// walk reads pointer 0 for a predecessor outside the packed band.
+// outside the grid take 0 (local) or NEG_INF (glocal); the row-to-row
+// band shift is clipped to [0, shift_max]; the best cell is the
+// row-major first strict maximum (glocal: last read row only); the walk
+// reads pointer 0 for a predecessor outside the packed band.
 //
-// What bounds it on an H100: integer ALU work and latency — the DP is a
-// chain of R dependent rows of W cells, with a few bytes of input per
-// row — then the serial pointer walk (about rlen steps per alignment),
-// not HBM bandwidth.
+// What bounds it on an H100: integer issue and latency.  The DP is a
+// chain of rlen dependent rows; a main-path alignment (50 rows, W 64)
+// holds about 1,050 band cells, 16 to 34 a row, so a warp an alignment,
+// sweeping all W columns of every row, computed three lane-slots for each
+// band cell.  HBM is not the limit: a row reads a few bytes of input, and the
+// bound counts 24 operations a band cell.
 //
-// Design: one warp per alignment, scanning read rows.  The previous and
-// current rows of the three states (2 x 3 x W int32) live in shared
-// memory; lane l owns columns u = 32*s + l of each 32-wide segment.  The
-// predecessor row is read at u + d with d = xmin[i] - xmin[i-1], straight
-// from shared memory (the TPU kernel needed a log-decomposed chain of
-// static lane shifts because it has no lane shuffle).  The W state is a
-// tilted warp prefix max over the floored NW row with a carried segment
-// maximum, and its pointer compares the exact west neighbours, fetched
-// with __shfl_up_sync.  Pointers go to a global scratch bits[B, R, W]
-// (2 bits per state: p_nw | p_n << 2 | p_w << 4), laid out per alignment
-// so one walk stays in one contiguous R*W block.  The best cell is kept
-// per lane in scan order and reduced across the warp (max score, then
-// lowest row, then lowest column).  Lane 0 then walks the pointers with
-// the early exit, buffers the ops in shared memory, and the warp writes
-// them reversed.
+// Design: a tile of T lanes per alignment, each lane owning C adjacent
+// columns of a segment of S = T * C (template parameters; (16, 2) at the
+// main path's W), 32 / T alignments to a warp.  The tile first stages its
+// window, and per row (xmin, nc, plane offset, read code), in shared
+// memory; nc[i] = min(band width, W, glen - xmin[i]) is the row's
+// computed prefix (0 from rlen on), and every other column's value is
+// implied: past W or before column 0 the border triple, past glen the
+// fill, past the band the border triple.  A row is swept segment after
+// segment over its prefix only; the warp-wide segment count is the
+// largest over its tiles, so the tiles run in step.  One row of states
+// (an int4 per column) is updated in place, one segment late: segment s
+// reads its predecessors (columns s*S + d - 1 and up), then writes
+// segment s - 1's states, so every read sees the previous row.  The W
+// state is each lane's running max of the tilted NW row over its columns,
+// then a log2 T shfl_up scan of the lanes' maxima over the tile, with a
+// carried segment maximum; its pointer compares the exact west
+// neighbours.  Pointers (p_nw | p_n << 2 | p_w << 4) of the computed
+// prefix only are packed row after row (row i at nc[0] + ... +
+// nc[i - 1]).  The best cell is kept per lane as (score, i * W + u, start
+// state) and reduced over the tile by xor shuffles.  Lane 0 of each tile
+// then walks its own alignment (32 / T walks at once), buffers the ops in
+// shared memory, and the tile writes them reversed.  One warp a block.
+//
+// Tiers, fixed per launch by make_plan from (G, R, W) alone (the bands
+// stay on the card):
+//  - the pointer plane sits in shared memory when an alignment's band
+//    cells fit PLANE_SMEM bytes (every main-path alignment does), else in
+//    the global scratch.  Without reading the bands the launcher cannot
+//    tell, so whenever R * W exceeds PLANE_SMEM the caller allocates R * W
+//    bytes an alignment (the main path's R 56, W 64 included), written
+//    only by the alignments that overflow, at their band cells;
+//  - the per-row info and the window are staged in shared memory when a
+//    warp's tiles fit a block; past that (reads of thousands of rows) the
+//    tile is the whole warp, the per-row info lives in the global scratch
+//    and the window is read where it lies, so a block holds only the state
+//    row and the op buffer: no more than the one-warp kernel this design
+//    replaced needed.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,7 +73,14 @@ namespace {
 constexpr int NEG_INF = -(1 << 28);
 constexpr int GENOME_PAD = -1;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t SMEM_BUDGET = 40 * 1024;
+// one warp a block: a block's shared memory is its tiles', so small
+// blocks pack an SM's 228 KB without a remainder of a whole warp's share
+constexpr int MIN_BLOCKS = 16;           // registers: at most 128 a lane
+constexpr int SMEM_MAX = 227 * 1024;     // shared memory a block may use
+// an alignment's shared-memory pointer plane, bytes: covers the main
+// path's 878 to 1,271 band cells an alignment; at 16 x 2 lanes it
+// measured faster than the global plane (PERF.md section 6)
+constexpr int PLANE_SMEM = 2048;
 
 constexpr int STATE_NW = 0, STATE_N = 1, STATE_W = 2;
 constexpr int NW_FROM_NW = 1, NW_FROM_N = 2, NW_FROM_W = 3;
@@ -61,272 +92,387 @@ struct Params {
   int match, mismatch, aoe, ae, boe, be, a_go, b_go;
 };
 
-__global__ void sw_full_kernel(
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// One alignment's shared memory, byte offsets: the state row (an int4 per
+// column), when staged the per-row info (xmin, nc, plane offset, read
+// code) and the window, the op buffer (in the state row when it fits: the
+// row is dead once the sweep is over) and the pointer plane's budget P.
+struct Layout {
+  int row, info, gen, ops, plane, bytes;
+  __host__ __device__ Layout(int G, int R, int W, int P, bool stage) {
+    row = 0;
+    int o = align16(W * 16);
+    info = gen = o;
+    if (stage) {
+      o += R * 16;
+      gen = o;
+      o += align16(G);
+    }
+    if (R + G <= W * 16) {
+      ops = row;
+    } else {
+      ops = o;
+      o += align16(R + G);
+    }
+    plane = o;
+    bytes = o + align16(P);
+  }
+};
+
+// A launch's shape: T lanes of C columns an alignment, whether the
+// per-row info and window are staged in shared memory, the shared plane
+// budget P, and the global scratch an alignment (the plane, then, when
+// not staged, the per-row info).
+struct Plan {
+  int T, C, stage, P, per;
+};
+
+// false when even one alignment a block does not fit its shared memory
+bool make_plan(int G, int R, int W, Plan& pl) {
+  const long long full = (long long)R * W;
+  pl.T = W <= 128 ? 16 : 32;
+  pl.C = 2;
+  pl.stage = 1;
+  pl.P = (int)(full < PLANE_SMEM ? full : PLANE_SMEM);
+  const long long plane = (full + 15) & ~15LL;
+  long long per = full > pl.P ? plane : 0;
+  if ((32 / pl.T) * (long long)Layout(G, R, W, pl.P, true).bytes > SMEM_MAX) {
+    pl.T = 32;
+    pl.stage = 0;
+    pl.P = 0;
+    if (Layout(G, R, W, 0, false).bytes > SMEM_MAX) return false;
+    per = (long long)R * 16 + plane;
+  }
+  if (per > 0x7fffffffLL) return false;
+  pl.per = (int)per;
+  return true;
+}
+
+// Cycle stamps for utils/pass2_probe.py, which defines PASS2_PROBE in the
+// copy it builds; nothing in this build.
+#ifndef PASS2_PROBE
+#define PASS2_PROBE(k)
+#endif
+
+template <int T>
+__device__ __forceinline__ int tile_sum(int v) {
+#pragma unroll
+  for (int o = T >> 1; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o, T);
+  return v;
+}
+
+template <int T, int C, bool STAGE>
+__global__ void __launch_bounds__(32, MIN_BLOCKS) sw_full_kernel(
     const int8_t* __restrict__ genome, const int8_t* __restrict__ read,
     const uint8_t* __restrict__ revcmpl, const int* __restrict__ band_xmin,
     const int* __restrict__ band_xmax, int B, int G, int R, int W,
-    int shift_max, int local, Params p, uint8_t* __restrict__ bits,
-    int* __restrict__ stats, uint8_t* __restrict__ ops) {
-  extern __shared__ int smem[];
-  const int warps = blockDim.x >> 5;
-  const int w = threadIdx.x >> 5;
+    int shift_max, int local, Params p, int P, int per,
+    uint8_t* __restrict__ scratch, int* __restrict__ stats,
+    uint8_t* __restrict__ ops) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int TPW = 32 / T;
+  constexpr int S = T * C;  // columns a segment
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + w;
-  if (b >= B) return;  // the whole warp leaves together
+  const int tl = lane & (T - 1);
+  const int slot = lane / T;
+  const int b = blockIdx.x * TPW + slot;
+  const bool live = b < B;  // the others keep their lanes for the shuffles
+  PASS2_PROBE(0);
 
-  const int L = R + G;
-  const int Ls = (L + 15) & ~15;
-  int* rows = smem + (size_t)w * 6 * W;
-  int* prv_nw = rows;
-  int* prv_n = rows + W;
-  int* prv_w = rows + 2 * W;
-  int* cur_nw = rows + 3 * W;
-  int* cur_n = rows + 4 * W;
-  int* cur_w = rows + 5 * W;
-  uint8_t* opbuf = reinterpret_cast<uint8_t*>(smem + (size_t)warps * 6 * W) +
-                   (size_t)w * Ls;
-
-  const int8_t* g = genome + (long long)b * G;
-  const int8_t* r = read + (long long)b * R;
-  const int* xmin = band_xmin + (long long)b * R;
-  const int* xmax = band_xmax + (long long)b * R;
-  uint8_t* bt = bits + (long long)b * R * W;
-  const bool rc = revcmpl[b] != 0;
+  const Layout lay(G, R, W, P, STAGE);
+  unsigned char* ts = smem + (size_t)slot * lay.bytes;
+  // this alignment's global scratch: the plane, after the per-row info
+  // when that is not staged
+  uint8_t* gs = scratch + (long long)(live ? b : 0) * per;
+  int4* row = reinterpret_cast<int4*>(ts + lay.row);
+  int4* info = reinterpret_cast<int4*>(STAGE ? ts + lay.info : gs);
+  int8_t* staged = reinterpret_cast<int8_t*>(ts + lay.gen);
+  const int8_t* sg =
+      STAGE ? staged : genome + (long long)(live ? b : 0) * G;
+  uint8_t* opbuf = ts + lay.ops;
   const bool loc = local != 0;
+  const bool rc = live && revcmpl[b] != 0;
+  const int L = R + G;
 
-  // rlen / glen = number of codes >= 0 (as sum(x >= 0) in the reference)
-  int cnt = 0;
-  for (int k = lane; k < R; k += 32) cnt += r[k] >= 0;
-  const int rlen = __reduce_add_sync(FULL, cnt);
-  cnt = 0;
-  for (int k = lane; k < G; k += 32) cnt += g[k] >= 0;
-  const int glen = __reduce_add_sync(FULL, cnt);
+  // rlen / glen = number of codes >= 0; the window into shared memory
+  int rlen = 0, glen = 0;
+  if (live) {
+    const int8_t* g = genome + (long long)b * G;
+    const int8_t* r = read + (long long)b * R;
+    for (int k = tl; k < G; k += T) {
+      const int c = g[k];
+      if (STAGE) staged[k] = (int8_t)c;
+      glen += c >= 0;
+    }
+    for (int k = tl; k < R; k += T) rlen += r[k] >= 0;
+  }
+  rlen = tile_sum<T>(rlen);
+  glen = tile_sum<T>(glen);
+  // per row: xmin, the computed prefix nc, the row's plane offset, the
+  // read code; rows >= rlen compute nothing and are never walked
+  if (live) {
+    const int* xm = band_xmin + (long long)b * R;
+    const int* xx = band_xmax + (long long)b * R;
+    const int8_t* r = read + (long long)b * R;
+    for (int k = tl; k < R; k += T) {
+      const int x0 = xm[k];
+      const int nc = k < rlen ? max(min(min(xx[k] - x0 + 1, W), glen - x0), 0)
+                              : 0;
+      info[k] = make_int4(x0, nc, 0, r[k]);
+    }
+  }
+  __syncwarp();
+  // plane offsets: each lane sums a run of rows, then a tile scan
+  const int rows_per = (R + T - 1) / T;
+  const int r0 = min(tl * rows_per, R), r1 = min(r0 + rows_per, R);
+  int run = 0;
+  if (live)
+    for (int k = r0; k < r1; ++k) run += info[k].y;
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < T; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, o, T);
+    if (tl >= o) incl += v;
+  }
+  const int total = __shfl_sync(FULL, incl, T - 1, T);
+  if (live) {
+    int o = incl - run;
+    for (int k = r0; k < r1; ++k) {
+      reinterpret_cast<int*>(info + k)[2] = o;
+      o += info[k].y;
+    }
+  }
+  __syncwarp();
+  // the pointer plane's tier
+  uint8_t* plane = STAGE && total <= P ? ts + lay.plane
+                                       : gs + (STAGE ? 0 : R * 16);
 
   const int fill = loc ? 0 : NEG_INF;
-  const int bor_nw = loc ? 0 : NEG_INF;
-  const int bor_n = loc ? p.b_go : NEG_INF;
-  const int bor_w = loc ? p.a_go : NEG_INF;
+  const int4 fill4 = make_int4(fill, fill, fill, 0);
+  const int4 bor4 = loc ? make_int4(0, p.b_go, p.a_go, 0)
+                        : make_int4(NEG_INF, NEG_INF, NEG_INF, 0);
+  const int4 top4 = make_int4(0, p.b_go, p.a_go, 0);
 
-  // this lane's first strict maximum, in row-major scan order
-  int lb = 0, li = 0, lu = 0, lj = 0, lnw = 0, ln = 0, lw = 0;
-  int xmin_p = 0;
-  // rows >= rlen are invalid in every column and never walked: skip them
-  for (int i = 0; i < rlen; ++i) {
-    const int xc = xmin[i];
-    const int bw = xmax[i] - xc;
+  // this lane's first strict maximum in row-major order: score, i*W + u,
+  // and the walk's start state there
+  int lb = 0, lpos = 0, lst = STATE_NW;
+  int nc_p = 0, xmin_p = 0, gl_p = 0;
+  const int rmax = __reduce_max_sync(FULL, rlen);
+  for (int i = 0; i < rmax; ++i) {
+    const int4 ri = i < rlen ? info[i] : make_int4(0, 0, 0, 0);
+    const int xc = ri.x, nci = ri.y, rch = ri.w;
+    const int nseg = __reduce_max_sync(FULL, (nci + S - 1) / S);
     const int d = i == 0 ? 0 : min(max(xc - xmin_p, 0), shift_max);
     const int gsh = min(max(xc, 0), shift_max);
-    const int rch = r[i];
-    const bool eligible_row = loc || i == rlen - 1;
-    uint8_t* brow = bt + (long long)i * W;
-    int c_nw = bor_nw;   // floored NW at column u0 - 1
-    int c_w = bor_w;     // floored W at column u0 - 1
-    int c_run = bor_nw;  // max over c <= u0 of cand[c] + ae*c
-    for (int u0 = 0; u0 < W; u0 += 32) {
-      const int u = u0 + lane;
-      const bool live = u < W;
-      int pd_nw, pd_n, pd_w, pn_nw, pn_n;
-      if (i == 0) {  // virtual row -1, in both modes
-        pd_nw = 0;
-        pd_n = p.b_go;
-        pd_w = p.a_go;
-        pn_nw = 0;
-        pn_n = p.b_go;
-      } else {
-        const int k = u + d;  // previous-row packed column of (i-1, j)
-        if (k >= 1 && k <= W) {
-          pd_nw = prv_nw[k - 1];
-          pd_n = prv_n[k - 1];
-          pd_w = prv_w[k - 1];
-        } else {
-          pd_nw = bor_nw;
-          pd_n = bor_n;
-          pd_w = bor_w;
-        }
-        if (k <= W - 1) {
-          pn_nw = prv_nw[k];
-          pn_n = prv_n[k];
-        } else {
-          pn_nw = bor_nw;
-          pn_n = bor_n;
-        }
-      }
-      const int gi = u + gsh;
-      const int gc = gi < G ? (int)g[gi] : GENOME_PAD;
-      const int ms = gc == rch ? p.match : p.mismatch;
-
-      // NW state (diagonal predecessors)
-      const int a1 = pd_nw + ms, a2 = pd_n + ms, a3 = pd_w + ms;
-      int s_nw, p_nw;
-      if (!rc) {
-        s_nw = a1; p_nw = NW_FROM_NW;
-        if (a2 > s_nw) { s_nw = a2; p_nw = NW_FROM_N; }
-        if (a3 > s_nw) { s_nw = a3; p_nw = NW_FROM_W; }
-      } else {
-        s_nw = a3; p_nw = NW_FROM_W;
-        if (a2 > s_nw) { s_nw = a2; p_nw = NW_FROM_N; }
-        if (a1 > s_nw) { s_nw = a1; p_nw = NW_FROM_NW; }
-      }
-      if (loc && s_nw <= 0) { s_nw = 0; p_nw = 0; }
-
-      // N state (north predecessors)
-      const int n1 = pn_nw - p.boe, n2 = pn_n - p.be;
-      int s_n, p_n;
-      if (!rc) {
-        s_n = n1; p_n = N_FROM_NW;
-        if (n2 > s_n) { s_n = n2; p_n = N_FROM_N; }
-      } else {
-        s_n = n2; p_n = N_FROM_N;
-        if (n1 > s_n) { s_n = n1; p_n = N_FROM_NW; }
-      }
-      if (loc && s_n <= 0) { s_n = 0; p_n = 0; }
-
-      // W state: tilted prefix max over [border NW, floored NW row]
-      int incl = s_nw + p.ae * (u + 1);
+    const bool elig = loc || i == rlen - 1;
+    uint8_t* prow = plane + ri.z;
+    int c_nw = bor4.x;   // floored NW at column s*S - 1
+    int c_w = bor4.z;    // floored W at column s*S - 1
+    int c_run = bor4.x;  // max over c <= s*S of cand[c] + ae*c
+    int4 pend[C];        // the previous segment's states, not yet written
+    int pend_u = 0, pend_n = 0;
+    for (int s = 0; s < nseg; ++s) {
+      const int u0 = s * S + tl * C;  // this lane's first column
+      // predecessors: v[c] is (i-1, j-1) of column u0 + c, v[c + 1] its
+      // (i-1, j); past the previous row's prefix the implied values
+      int4 v[C + 1];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl = max(incl, v);
+      for (int c = 0; c <= C; ++c) {
+        const int k = u0 + d - 1 + c;
+        v[c] = i == 0 ? top4  // virtual row -1, in both modes
+               : (unsigned)k < (unsigned)nc_p ? row[k]
+               : (k >= gl_p && k >= 0 && k < W) ? fill4 : bor4;
       }
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      excl = lane == 0 ? c_run : max(excl, c_run);
-      int s_w = max(excl - p.aoe - p.ae * u, bor_w - p.ae * (u + 1));
-      const int w_fl = loc ? max(s_w, 0) : s_w;
-      int nw_west = __shfl_up_sync(FULL, s_nw, 1);
-      int w_west = __shfl_up_sync(FULL, w_fl, 1);
-      if (lane == 0) { nw_west = c_nw; w_west = c_w; }
-      const int cnw = nw_west - p.aoe, cw = w_west - p.ae;
-      int p_w = rc ? (cw >= cnw ? W_FROM_W : W_FROM_NW)
-                   : (cnw >= cw ? W_FROM_NW : W_FROM_W);
-      if (loc && s_w <= 0) { s_w = 0; p_w = 0; }
-      c_nw = __shfl_sync(FULL, s_nw, 31);
-      c_w = __shfl_sync(FULL, w_fl, 31);
-      c_run = max(c_run, __shfl_sync(FULL, incl, 31));
+      __syncwarp();  // every read of this segment precedes the writes
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c < pend_n) row[pend_u + c] = pend[c];
 
-      // band-width masking, then grid validity
-      if (u > bw) {
-        s_nw = bor_nw; s_n = bor_n; s_w = bor_w;
-        p_nw = p_n = p_w = 0;
-      }
-      const bool valid = xc + u < glen;
-      if (!valid) {
-        s_nw = s_n = s_w = fill;
-        p_nw = p_n = p_w = 0;
-      }
-      if (live) {
-        if (valid && eligible_row) {
-          const int cell = __vimax3_s32(s_nw, s_n, s_w);
-          if (cell > lb) {
-            lb = cell; li = i; lu = u; lj = xc + u;
-            lnw = s_nw; ln = s_n; lw = s_w;
-          }
+      int s_nw[C], s_n[C], w_fl[C], ptr[C], tilt[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int u = u0 + c;
+        const int gi = u + gsh;
+        const int gc = gi < G ? (int)sg[gi] : GENOME_PAD;
+        const int ms = gc == rch ? p.match : p.mismatch;
+        // NW state (diagonal predecessors)
+        const int a1 = v[c].x + ms, a2 = v[c].y + ms, a3 = v[c].z + ms;
+        int snw, pnw;
+        if (!rc) {
+          snw = a1; pnw = NW_FROM_NW;
+          if (a2 > snw) { snw = a2; pnw = NW_FROM_N; }
+          if (a3 > snw) { snw = a3; pnw = NW_FROM_W; }
+        } else {
+          snw = a3; pnw = NW_FROM_W;
+          if (a2 > snw) { snw = a2; pnw = NW_FROM_N; }
+          if (a1 > snw) { snw = a1; pnw = NW_FROM_NW; }
         }
-        cur_nw[u] = s_nw;
-        cur_n[u] = s_n;
-        cur_w[u] = s_w;
-        brow[u] = (uint8_t)(p_nw | (p_n << 2) | (p_w << 4));
+        if (loc && snw <= 0) { snw = 0; pnw = 0; }
+        // N state (north predecessors)
+        const int n1 = v[c + 1].x - p.boe, n2 = v[c + 1].y - p.be;
+        int sn, pn;
+        if (!rc) {
+          sn = n1; pn = N_FROM_NW;
+          if (n2 > sn) { sn = n2; pn = N_FROM_N; }
+        } else {
+          sn = n2; pn = N_FROM_N;
+          if (n1 > sn) { sn = n1; pn = N_FROM_NW; }
+        }
+        if (loc && sn <= 0) { sn = 0; pn = 0; }
+        s_nw[c] = snw;
+        s_n[c] = sn;
+        ptr[c] = pnw | (pn << 2);
+        // the lane's running max of the tilted NW row
+        const int t = snw + p.ae * (u + 1);
+        tilt[c] = c ? max(tilt[c - 1], t) : t;
       }
+      // W state: tilted prefix max over [border NW, floored NW row]: the
+      // lanes' maxima scanned over the tile, then each lane's own columns
+      int inc = tilt[C - 1];
+#pragma unroll
+      for (int o = 1; o < T; o <<= 1)
+        inc = max(inc, __shfl_up_sync(FULL, inc, o, T));
+      int ex = __shfl_up_sync(FULL, inc, 1, T);
+      ex = tl == 0 ? c_run : max(ex, c_run);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int u = u0 + c;
+        const int excl = c ? max(ex, tilt[c - 1]) : ex;
+        const int sw = max(excl - p.aoe - p.ae * u, bor4.z - p.ae * (u + 1));
+        w_fl[c] = loc ? max(sw, 0) : sw;
+      }
+      int nw_west = __shfl_up_sync(FULL, s_nw[C - 1], 1, T);
+      int w_west = __shfl_up_sync(FULL, w_fl[C - 1], 1, T);
+      if (tl == 0) { nw_west = c_nw; w_west = c_w; }
+      c_nw = __shfl_sync(FULL, s_nw[C - 1], T - 1, T);
+      c_w = __shfl_sync(FULL, w_fl[C - 1], T - 1, T);
+      c_run = max(c_run, __shfl_sync(FULL, inc, T - 1, T));
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int u = u0 + c;
+        const int cnw = (c ? s_nw[c - 1] : nw_west) - p.aoe;
+        const int cw = (c ? w_fl[c - 1] : w_west) - p.ae;
+        int pw = rc ? (cw >= cnw ? W_FROM_W : W_FROM_NW)
+                    : (cnw >= cw ? W_FROM_NW : W_FROM_W);
+        // the floored W equals w_fl; a floored cell has no pointer
+        if (loc && w_fl[c] <= 0) pw = 0;
+        if (u < nci) {
+          const int cell = __vimax3_s32(s_nw[c], s_n[c], w_fl[c]);
+          if (elig && cell > lb) {
+            lb = cell;
+            lpos = i * W + u;
+            lst = w_fl[c] > s_nw[c] ? STATE_W : STATE_NW;
+            if (s_n[c] > max(s_nw[c], w_fl[c])) lst = STATE_N;
+          }
+          prow[u] = (uint8_t)(ptr[c] | (pw << 4));
+        }
+        pend[c] = make_int4(s_nw[c], s_n[c], w_fl[c], 0);
+      }
+      pend_u = u0;
+      pend_n = min(max(nci - u0, 0), C);
     }
     __syncwarp();
-    int* t;
-    t = prv_nw; prv_nw = cur_nw; cur_nw = t;
-    t = prv_n; prv_n = cur_n; cur_n = t;
-    t = prv_w; prv_w = cur_w; cur_w = t;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c < pend_n) row[pend_u + c] = pend[c];
+    __syncwarp();
+    nc_p = nci;
     xmin_p = xc;
+    gl_p = glen - xc;
   }
 
-  // best cell: max score, then the lowest row, then the lowest column
-  const int score = __reduce_max_sync(FULL, lb);
-  const bool m1 = lb == score;
-  const int imin = __reduce_min_sync(FULL, m1 ? li : INT_MAX);
-  const bool m2 = m1 && li == imin;
-  const int umin = __reduce_min_sync(FULL, m2 ? lu : INT_MAX);
-  const int src = __ffs(__ballot_sync(FULL, m2 && lu == umin)) - 1;
-  const int bi = __shfl_sync(FULL, li, src);
-  const int bj = __shfl_sync(FULL, lj, src);
-  const int s_nw0 = __shfl_sync(FULL, lnw, src);
-  const int s_n0 = __shfl_sync(FULL, ln, src);
-  const int s_w0 = __shfl_sync(FULL, lw, src);
-  __syncwarp();  // the pointer rows written by all lanes are visible
+  PASS2_PROBE(1);
+  // best cell over the tile: max score, then the lowest i*W + u
+#pragma unroll
+  for (int o = T >> 1; o; o >>= 1) {
+    const int ob = __shfl_xor_sync(FULL, lb, o, T);
+    const int opos = __shfl_xor_sync(FULL, lpos, o, T);
+    const int ost = __shfl_xor_sync(FULL, lst, o, T);
+    if (ob > lb || (ob == lb && opos < lpos)) {
+      lb = ob;
+      lpos = opos;
+      lst = ost;
+    }
+  }
+  __syncwarp();  // the pointers written by all lanes are visible
 
   int nops = 0;
-  if (lane == 0) {
-    int state = STATE_NW, sb = s_nw0;
-    if (s_w0 > sb) { state = STATE_W; sb = s_w0; }
-    if (s_n0 > sb) state = STATE_N;
-    int i = bi, j = bj;
+  if (tl == 0 && live) {
     int rs = 0, gs = 0, mt = 0, mm = 0, ins = 0, dl = 0;
-    bool active = score > 0;
-    for (int step = 0; active && step < L; ++step) {
-      const int ii = min(max(i, 0), R - 1);
-      const int jj = min(max(j, 0), G - 1);
-      const int ur = jj - xmin[ii];
-      const int cell = (ur >= 0 && ur < W) ? bt[(long long)ii * W + ur] : 0;
-      const int ptr = state == STATE_NW ? (cell & 3)
-                      : state == STATE_N ? ((cell >> 2) & 3)
-                                         : ((cell >> 4) & 3);
-      if (ptr == 0) break;
-      if (state == STATE_NW) {
-        opbuf[nops++] = OP_MATCH;
-        if (g[jj] == r[ii]) ++mt; else ++mm;
-        rs = i; gs = j;
-        --i; --j;
-        state = ptr == NW_FROM_NW ? STATE_NW
-                : ptr == NW_FROM_N ? STATE_N : STATE_W;
-      } else if (state == STATE_N) {
-        opbuf[nops++] = OP_DEL;
-        ++dl;
-        rs = i;
-        --i;
-        state = ptr == N_FROM_N ? STATE_N : STATE_NW;
-      } else {
-        opbuf[nops++] = OP_INS;
-        ++ins;
-        gs = j;
-        --j;
-        state = ptr == W_FROM_W ? STATE_W : STATE_NW;
+    if (lb > 0) {
+      int i = lpos / W;
+      int j = info[i].x + (lpos - i * W);
+      int state = lst;
+      for (int step = 0; step < L; ++step) {
+        const int ii = min(max(i, 0), R - 1);
+        const int jj = min(max(j, 0), G - 1);
+        const int4 rr = info[ii];
+        const int ur = jj - rr.x;
+        const int cell =
+            (unsigned)ur < (unsigned)rr.y ? plane[rr.z + ur] : 0;
+        const int ptr = (cell >> (2 * state)) & 3;
+        if (ptr == 0) break;
+        if (state == STATE_NW) {
+          opbuf[nops++] = OP_MATCH;
+          if (sg[jj] == rr.w) ++mt; else ++mm;
+          rs = i; gs = j;
+          --i; --j;
+          state = ptr == NW_FROM_NW ? STATE_NW
+                  : ptr == NW_FROM_N ? STATE_N : STATE_W;
+        } else if (state == STATE_N) {
+          opbuf[nops++] = OP_DEL;
+          ++dl;
+          rs = i;
+          --i;
+          state = ptr == N_FROM_N ? STATE_N : STATE_NW;
+        } else {
+          opbuf[nops++] = OP_INS;
+          ++ins;
+          gs = j;
+          --j;
+          state = ptr == W_FROM_W ? STATE_W : STATE_NW;
+        }
+        if (i < 0 || j < 0) break;
       }
-      active = i >= 0 && j >= 0;
     }
-    int* s = stats + (long long)b * 10;
-    s[0] = score; s[1] = rs; s[2] = gs; s[3] = mt; s[4] = mm;
-    s[5] = ins; s[6] = dl; s[7] = mt + mm + dl; s[8] = mt + mm + ins;
-    s[9] = nops;
+    int* st = stats + (long long)b * 10;
+    st[0] = lb; st[1] = rs; st[2] = gs; st[3] = mt; st[4] = mm;
+    st[5] = ins; st[6] = dl; st[7] = mt + mm + dl; st[8] = mt + mm + ins;
+    st[9] = nops;
   }
-  nops = __shfl_sync(FULL, nops, 0);
+  nops = __shfl_sync(FULL, nops, 0, T);
   __syncwarp();
-  uint8_t* orow = ops + (long long)b * L;
-  for (int k = lane; k < L; k += 32)
-    orow[k] = k < nops ? opbuf[nops - 1 - k] : (uint8_t)0;
+  if (live) {
+    uint8_t* orow = ops + (long long)b * L;
+    for (int k = tl; k < L; k += T)
+      orow[k] = k < nops ? opbuf[nops - 1 - k] : (uint8_t)0;
+  }
+  PASS2_PROBE(2);
 }
 
-}  // namespace
-
-// One launch over B alignments: genome int8 [B, G] (GENOME_PAD-padded),
-// read int8 [B, R] (READ_PAD-padded), revcmpl uint8 [B], band_xmin /
-// band_xmax int32 [B, R]; bits is uint8 scratch of B * R * W bytes; stats
-// int32 [B, 10] and ops uint8 [B, R + G] are written in full.  shift_max
-// is the TPU kernel's shift clip (smallest power of two >= G, minus 1).
-// Scoring parameters are the reference's signed scores.  Runs on
-// `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int sw_full_launch(
-    const void* genome, const void* read, const void* revcmpl,
-    const void* band_xmin, const void* band_xmax, int B, int G, int R,
-    int W, int shift_max, int local, int match, int mismatch,
-    int a_gap_open, int a_gap_extend, int b_gap_open, int b_gap_extend,
-    void* bits, void* stats, void* ops, void* stream) {
-  if (B <= 0) return 0;
-  const size_t per_warp =
-      (size_t)6 * W * sizeof(int) + (size_t)((R + G + 15) & ~15);
-  int warps = (int)(SMEM_BUDGET / per_warp);
-  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
-  const size_t smem = per_warp * warps;
+template <int T, int C, bool STAGE>
+int launch(const int8_t* genome, const int8_t* read, const uint8_t* revcmpl,
+           const int* band_xmin, const int* band_xmax, int B, int G, int R,
+           int W, int shift_max, int local, Params p, int P, int per,
+           uint8_t* scratch, int* stats, uint8_t* ops, cudaStream_t stream) {
+  const int smem = (32 / T) * Layout(G, R, W, P, STAGE).bytes;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sw_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        sw_full_kernel<T, C, STAGE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const int grid = (B + 32 / T - 1) / (32 / T);
+  sw_full_kernel<T, C, STAGE><<<grid, 32, smem, stream>>>(
+      genome, read, revcmpl, band_xmin, band_xmax, B, G, R, W, shift_max,
+      local, p, P, per, scratch, stats, ops);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(int match, int mismatch, int a_gap_open, int a_gap_extend,
+                   int b_gap_open, int b_gap_extend) {
   Params p;
   p.match = match;
   p.mismatch = mismatch;
@@ -336,12 +482,59 @@ extern "C" int sw_full_launch(
   p.be = -b_gap_extend;
   p.a_go = a_gap_open;
   p.b_go = b_gap_open;
-  const int grid = (B + warps - 1) / warps;
-  sw_full_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)genome, (const int8_t*)read, (const uint8_t*)revcmpl,
-      (const int*)band_xmin, (const int*)band_xmax, B, G, R, W, shift_max,
-      local, p, (uint8_t*)bits, (int*)stats, (uint8_t*)ops);
-  return (int)cudaGetLastError();
+  return p;
+}
+
+}  // namespace
+
+// The launch's shape for an alignment of G, R, W: out = (lanes a tile,
+// columns a lane, staged, shared plane budget, global scratch bytes an
+// alignment).  Returns -1 when an alignment does not fit a block's shared
+// memory, else 0.
+extern "C" int sw_full_plan(int G, int R, int W, int* out) {
+  Plan pl;
+  if (!make_plan(G, R, W, pl)) return -1;
+  out[0] = pl.T; out[1] = pl.C; out[2] = pl.stage; out[3] = pl.P;
+  out[4] = pl.per;
+  return 0;
+}
+
+// One launch over B alignments: genome int8 [B, G] (GENOME_PAD-padded),
+// read int8 [B, R] (READ_PAD-padded), revcmpl uint8 [B], band_xmin /
+// band_xmax int32 [B, R]; stats int32 [B, 10] and ops uint8 [B, R + G] are
+// written in full.  shift_max is the TPU kernel's shift clip (smallest
+// power of two >= G, minus 1).  scratch holds B times the bytes
+// sw_full_plan gives an alignment (null when that is 0).  Scoring
+// parameters are the reference's signed scores.  Runs on `stream`,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int sw_full_launch(
+    const void* genome, const void* read, const void* revcmpl,
+    const void* band_xmin, const void* band_xmax, int B, int G, int R,
+    int W, int shift_max, int local, int match, int mismatch,
+    int a_gap_open, int a_gap_extend, int b_gap_open, int b_gap_extend,
+    void* scratch, void* stats, void* ops, void* stream) {
+  if (B <= 0) return 0;
+  Plan pl;
+  if (!make_plan(G, R, W, pl)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(match, mismatch, a_gap_open, a_gap_extend,
+                               b_gap_open, b_gap_extend);
+  auto* g = (const int8_t*)genome;
+  auto* r = (const int8_t*)read;
+  auto* rc = (const uint8_t*)revcmpl;
+  auto* x0 = (const int*)band_xmin;
+  auto* x1 = (const int*)band_xmax;
+  auto* sc = (uint8_t*)scratch;
+  auto* st = (int*)stats;
+  auto* op = (uint8_t*)ops;
+  auto* s = (cudaStream_t)stream;
+  if (!pl.stage)
+    return launch<32, 2, false>(g, r, rc, x0, x1, B, G, R, W, shift_max,
+                                local, p, 0, pl.per, sc, st, op, s);
+  if (pl.T == 16)
+    return launch<16, 2, true>(g, r, rc, x0, x1, B, G, R, W, shift_max,
+                               local, p, pl.P, pl.per, sc, st, op, s);
+  return launch<32, 2, true>(g, r, rc, x0, x1, B, G, R, W, shift_max, local,
+                             p, pl.P, pl.per, sc, st, op, s);
 }
 
 extern "C" const char* shrimp_error_string(int e) {

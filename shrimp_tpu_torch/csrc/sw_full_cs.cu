@@ -35,27 +35,44 @@
 // BASE_N column as a match, and ends in a non-primary layer at the cost
 // of one more crossover flagged on the first column.
 //
-// What bounds it on an H100: integer ALU work and latency, as in the
-// letter-space sw_full kernel but about 12 times the work per cell (4
-// layers x 3 states, 6-way picks), then the serial pointer walk; a row
-// reads a few bytes of input, so HBM is not the limit.
+// What bounds it on an H100: integer issue and latency, as in the
+// letter-space kernel at about six times the work per cell (4 layers x 3
+// states, 6-way picks; the bound counts 144 operations a band cell), then
+// the serial pointer walk; a row reads a few bytes of input, so HBM is
+// not the limit.  A main-path alignment (50 rows, W 64) holds about
+// 1,065 band cells.
 //
-// Design: one warp per alignment, scanning read rows.  The previous and
-// current rows of 3 states x 4 layers (2 x 12 x W int32, 96 W bytes) live
-// in shared memory; lane l owns columns u = 32*s + l of each 32-wide
-// segment, reads its predecessors at u + d straight from shared memory,
-// and keeps the per-source-layer maxima in registers.  Each layer's W
-// state is a tilted warp prefix max over the floored NW row with a
-// carried segment maximum; its pointer compares the exact west
-// neighbours, fetched with __shfl_up_sync.  Pointers go to a global
-// scratch bits[B, R, 4, W] of uint16 (p_nw | p_n << 4 | p_w << 8, 4-bit
-// payload 1 + layer*3 + state).  The best cell is kept per lane in scan
-// order and reduced across the warp (max score, then lowest row, then
-// lowest column; the lane kept the lowest layer).  Lane 0 then walks the
-// pointers, buffers the ops in shared memory, and the warp writes them
-// reversed.
+// Design: the letter-space kernel's (csrc/sw_full.cu) with one column a
+// lane and four layers a lane.  A tile of T lanes per alignment (T = 16 or
+// 32, picked per launch from W), 32 / T alignments to a warp.  The tile
+// stages its window, its per-row info (xmin, computed prefix nc, plane
+// offset, crossover) and the four read decodings in shared memory; every
+// row is swept in segments of T columns over its prefix only, the
+// warp-wide segment count being the largest over its tiles.  Past the
+// prefix a predecessor reads the previous row's border: in colour space
+// the band, W and glen give the same value.  One row of 12 states a
+// column (3 int4: NW, N, W of the four layers) is updated in place one
+// segment late, so every read of a segment sees the previous row.  Each
+// lane first makes the four layers' NW and N, then the four W-state
+// scans (log2 T shfl_up steps of width T, side by side) with carried
+// segment maxima; each W pointer compares the exact west neighbours.  The
+// pointers of a cell (4 layers x p_nw | p_n << 4 | p_w << 8, 8 bytes) are
+// packed row after row over the computed prefixes, in the global scratch:
+// a shared-memory plane measured slower at every budget tried, its
+// occupancy lost being worth more than the walk it speeds.  The launcher
+// cannot read the bands, so the scratch is R * W * 8 bytes an alignment,
+// as large as the one-warp kernel's pointer plane; only the band cells
+// are written.  The best cell is kept per lane as (score, (i * W + u) * 4
+// + k, start state) and reduced over the tile by xor shuffles.  Lane 0 of
+// each tile walks its own alignment, buffers the ops, and the tile writes
+// them reversed.  One warp a block.
+//
+// When a warp's tiles do not fit a block's shared memory (reads of
+// thousands of rows), the tile is the whole warp, the per-row info and the
+// decodings live in the global scratch before the plane, and the window is
+// read where it lies: a block then holds only the state row and the op
+// buffer, no more than the one-warp kernel this design replaced needed.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -65,7 +82,10 @@ constexpr int NEG_INF = -(1 << 28);
 constexpr int GENOME_PAD = -1;
 constexpr int BASE_N = 15;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t SMEM_BUDGET = 40 * 1024;
+// one warp a block: a block's shared memory is its tiles', so small
+// blocks pack an SM's 228 KB without a remainder of a whole warp's share
+constexpr int MIN_BLOCKS = 16;           // registers: at most 128 a lane
+constexpr int SMEM_MAX = 227 * 1024;     // shared memory a block may use
 
 constexpr int STATE_NW = 0, STATE_N = 1, STATE_W = 2;
 constexpr uint8_t OP_MATCH = 0, OP_INS = 1, OP_DEL = 2, OP_XOVER = 0x10;
@@ -74,274 +94,434 @@ struct Params {
   int match, mismatch, aoe, ae, boe, be, a_go, b_go, gxp;
 };
 
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
 __device__ __forceinline__ int ptr_code(int layer, int state) {
   return 1 + layer * 3 + state;
 }
 
-__global__ void sw_full_cs_kernel(
+// One alignment's shared memory, byte offsets: the state row (3 int4 a
+// column), when staged the per-row info (xmin, nc, plane offset,
+// crossover), the read decodings (4 codes an int) and the window, then the
+// op buffer (in the state row when it fits).
+struct Layout {
+  int row, info, qd, gen, ops, bytes;
+  __host__ __device__ Layout(int G, int R, int W, bool stage) {
+    row = 0;
+    int o = align16(W * 48);
+    info = qd = gen = o;
+    if (stage) {
+      o += R * 16;
+      qd = o;
+      o += align16(R * 4);
+      gen = o;
+      o += align16(G);
+    }
+    if (R + G <= W * 48) {
+      ops = row;
+    } else {
+      ops = o;
+      o += align16(R + G);
+    }
+    bytes = o;
+  }
+};
+
+// A launch's shape: T lanes an alignment, whether the per-row info,
+// decodings and window are staged in shared memory, and the global scratch
+// an alignment (when not staged the per-row info and decodings, then the
+// pointer plane).
+struct Plan {
+  int T, stage, per;
+};
+
+// false when even one alignment a block does not fit its shared memory
+bool make_plan(int G, int R, int W, Plan& pl) {
+  pl.T = W <= 64 ? 16 : 32;
+  pl.stage = 1;
+  long long per = (long long)R * W * 8;
+  if ((32 / pl.T) * (long long)Layout(G, R, W, true).bytes > SMEM_MAX) {
+    pl.T = 32;
+    pl.stage = 0;
+    if (Layout(G, R, W, false).bytes > SMEM_MAX) return false;
+    per += (long long)R * 16 + align16(R * 4);
+  }
+  per = (per + 15) & ~15LL;
+  if (per > 0x7fffffffLL) return false;
+  pl.per = (int)per;
+  return true;
+}
+
+// Cycle stamps for utils/pass2_probe.py, which defines PASS2_PROBE in the
+// copy it builds; nothing in this build.
+#ifndef PASS2_PROBE
+#define PASS2_PROBE(k)
+#endif
+
+template <int T>
+__device__ __forceinline__ int tile_sum(int v) {
+#pragma unroll
+  for (int o = T >> 1; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o, T);
+  return v;
+}
+
+__device__ __forceinline__ int lane4(const int4& v, int l) {
+  return l == 0 ? v.x : l == 1 ? v.y : l == 2 ? v.z : v.w;
+}
+
+template <int T, bool STAGE>
+__global__ void __launch_bounds__(32, MIN_BLOCKS) sw_full_cs_kernel(
     const int8_t* __restrict__ genome, const int8_t* __restrict__ qr4,
     const int* __restrict__ xover, const uint8_t* __restrict__ revcmpl,
     const int* __restrict__ band_xmin, const int* __restrict__ band_xmax,
     int B, int G, int R, int W, int shift_max, int local, int taboo_len,
-    Params p, uint16_t* __restrict__ bits, int* __restrict__ stats,
-    uint8_t* __restrict__ ops) {
-  extern __shared__ int smem[];
-  const int warps = blockDim.x >> 5;
-  const int w = threadIdx.x >> 5;
+    Params p, int per, uint8_t* __restrict__ scratch,
+    int* __restrict__ stats, uint8_t* __restrict__ ops) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int TPW = 32 / T;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + w;
-  if (b >= B) return;  // the whole warp leaves together
+  const int tl = lane & (T - 1);
+  const int slot = lane / T;
+  const int b = blockIdx.x * TPW + slot;
+  const bool live = b < B;  // the others keep their lanes for the shuffles
+  PASS2_PROBE(0);
 
-  const int L = R + G;
-  const int Ls = (L + 15) & ~15;
-  // rows[(state * 4 + layer) * W + u]: previous row, then current row
-  int* prv = smem + (size_t)w * 24 * W;
-  int* cur = prv + 12 * W;
-  uint8_t* opbuf = reinterpret_cast<uint8_t*>(smem + (size_t)warps * 24 * W) +
-                   (size_t)w * Ls;
-
-  const int8_t* g = genome + (long long)b * G;
-  const int8_t* q = qr4 + (long long)b * 4 * R;
-  const int* xrow = xover + (long long)b * R;
-  const int* xmin = band_xmin + (long long)b * R;
-  const int* xmax = band_xmax + (long long)b * R;
-  uint16_t* bt = bits + (long long)b * R * 4 * W;
-  const bool rc = revcmpl[b] != 0;
+  const Layout lay(G, R, W, STAGE);
+  unsigned char* ts = smem + (size_t)slot * lay.bytes;
+  // this alignment's global scratch: when not staged the per-row info and
+  // decodings, then the pointer plane
+  uint8_t* gs = scratch + (long long)(live ? b : 0) * per;
+  const int qoff = R * 16, poff = STAGE ? 0 : qoff + align16(R * 4);
+  int4* row = reinterpret_cast<int4*>(ts + lay.row);
+  int4* info = reinterpret_cast<int4*>(STAGE ? ts + lay.info : gs);
+  int* sq = reinterpret_cast<int*>(STAGE ? ts + lay.qd : gs + qoff);
+  int8_t* staged = reinterpret_cast<int8_t*>(ts + lay.gen);
+  const int8_t* sg =
+      STAGE ? staged : genome + (long long)(live ? b : 0) * G;
+  uint8_t* opbuf = ts + lay.ops;
   const bool loc = local != 0;
+  const bool rc = live && revcmpl[b] != 0;
+  const int L = R + G;
 
-  // rlen / glen = number of codes >= 0 (layer 0 for the read)
-  int cnt = 0;
-  for (int k = lane; k < R; k += 32) cnt += q[k] >= 0;
-  const int rlen = __reduce_add_sync(FULL, cnt);
-  cnt = 0;
-  for (int k = lane; k < G; k += 32) cnt += g[k] >= 0;
-  const int glen = __reduce_add_sync(FULL, cnt);
+  // rlen (layer 0) / glen = number of codes >= 0; the window into shared
+  // memory
+  int rlen = 0, glen = 0;
+  if (live) {
+    const int8_t* g = genome + (long long)b * G;
+    const int8_t* q = qr4 + (long long)b * 4 * R;
+    for (int k = tl; k < G; k += T) {
+      const int c = g[k];
+      if (STAGE) staged[k] = (int8_t)c;
+      glen += c >= 0;
+    }
+    for (int k = tl; k < R; k += T) rlen += q[k] >= 0;
+  }
+  rlen = tile_sum<T>(rlen);
+  glen = tile_sum<T>(glen);
+  // per row: xmin, the computed prefix nc, the plane offset, the row's
+  // crossover; the four decodings packed a byte a layer
+  if (live) {
+    const int* xm = band_xmin + (long long)b * R;
+    const int* xx = band_xmax + (long long)b * R;
+    const int* xo = xover + (long long)b * R;
+    const uint8_t* q = reinterpret_cast<const uint8_t*>(qr4) +
+                       (long long)b * 4 * R;
+    for (int k = tl; k < R; k += T) {
+      const int x0 = xm[k];
+      const int nc = k < rlen ? max(min(min(xx[k] - x0 + 1, W), glen - x0), 0)
+                              : 0;
+      info[k] = make_int4(x0, nc, 0, xo[k]);
+      sq[k] = (int)q[k] | ((int)q[R + k] << 8) | ((int)q[2 * R + k] << 16) |
+              ((int)q[3 * R + k] << 24);
+    }
+  }
+  __syncwarp();
+  // plane offsets: each lane sums a run of rows, then a tile scan
+  const int rows_per = (R + T - 1) / T;
+  const int r0 = min(tl * rows_per, R), r1 = min(r0 + rows_per, R);
+  int run = 0;
+  if (live)
+    for (int k = r0; k < r1; ++k) run += info[k].y;
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < T; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, o, T);
+    if (tl >= o) incl += v;
+  }
+  if (live) {
+    int o = incl - run;
+    for (int k = r0; k < r1; ++k) {
+      reinterpret_cast<int*>(info + k)[2] = o;
+      o += info[k].y;
+    }
+  }
+  __syncwarp();
+  // the pointer plane: 4 x uint16 a band cell
+  ushort4* plane = reinterpret_cast<ushort4*>(gs + poff);
 
-  // this lane's first strict maximum, in (row, column, layer) scan order
-  int lb = 0, li = 0, lu = 0, lj = 0, lk = 0, lnw = 0, ln = 0, lw = 0;
-  int xmin_p = 0;
-  // rows >= rlen are invalid in every column and never walked: skip them
-  for (int i = 0; i < rlen; ++i) {
-    const int xc = xmin[i];
-    const int bw = xmax[i] - xc;
+  // this lane's first strict maximum in (row, column, layer) order:
+  // score, (i*W + u)*4 + k, and the walk's start state there
+  int lb = 0, lpos = 0, lst = STATE_NW;
+  int nc_p = 0, xmin_p = 0, xp_p = 0;
+  const int rmax = __reduce_max_sync(FULL, rlen);
+  for (int i = 0; i < rmax; ++i) {
+    const int4 ri = i < rlen ? info[i] : make_int4(0, 0, 0, 0);
+    const int xc = ri.x, nci = ri.y, xp = ri.w;
+    const int qpack = i < rlen ? sq[i] : 0;
+    const int nseg = __reduce_max_sync(FULL, (nci + T - 1) / T);
     const int d = i == 0 ? 0 : min(max(xc - xmin_p, 0), shift_max);
     const int gsh = min(max(xc, 0), shift_max);
-    const int xp = xrow[i];
-    const int xp_prev = i == 0 ? 0 : xrow[i - 1];
     const bool tok = i < rlen - taboo_len;
-    const bool eligible_row = loc || i == rlen - 1;
-    int qk[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) qk[k] = q[k * R + i];
+    const bool elig = loc || i == rlen - 1;
+    ushort4* prow = plane + ri.z;
+    // the previous row's border (what a predecessor past its prefix reads)
+    // and this row's
+    int4 b_nw, b_n, b_w, c_nw4, c_w4;
+    if (loc) {
+      b_nw = make_int4(0, xp_p, xp_p, xp_p);
+      b_n = make_int4(p.b_go, p.b_go + xp_p, p.b_go + xp_p, p.b_go + xp_p);
+      b_w = make_int4(p.a_go, p.a_go + xp_p, p.a_go + xp_p, p.a_go + xp_p);
+      c_nw4 = make_int4(0, xp, xp, xp);
+      c_w4 = make_int4(p.a_go, p.a_go + xp, p.a_go + xp, p.a_go + xp);
+    } else {
+      b_nw = b_n = b_w = c_nw4 = c_w4 =
+          make_int4(NEG_INF, NEG_INF, NEG_INF, NEG_INF);
+    }
+    if (i == 0) {  // virtual top row, the global crossover for k > 0
+      const int e = p.gxp;
+      b_nw = make_int4(0, e, e, e);
+      b_n = make_int4(p.b_go, p.b_go + e, p.b_go + e, p.b_go + e);
+      b_w = make_int4(p.a_go, p.a_go + e, p.a_go + e, p.a_go + e);
+    }
     // carries of the W-state scans, per layer: floored NW and W at column
-    // u0 - 1, and the max over c <= u0 of cand[c] + ae*c
+    // s*T - 1, and the max over c <= s*T of cand[c] + ae*c
     int c_nw[4], c_w[4], c_run[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int ie = k ? xp : 0;
-      c_nw[k] = loc ? ie : NEG_INF;
-      c_w[k] = loc ? p.a_go + ie : NEG_INF;
+      c_nw[k] = lane4(c_nw4, k);
+      c_w[k] = lane4(c_w4, k);
       c_run[k] = tok ? c_nw[k] : NEG_INF;
     }
-    uint16_t* brow = bt + (long long)i * 4 * W;
-    for (int u0 = 0; u0 < W; u0 += 32) {
-      const int u = u0 + lane;
-      const bool live = u < W;
-      const int kk = u + d;  // previous-row packed column of (i-1, j)
+    int4 pend0 = b_nw, pend1 = b_n, pend2 = b_w;  // written a segment late
+    int pend_u = -1;
+    for (int s = 0; s < nseg; ++s) {
+      const int u = s * T + tl;
+      // predecessors: (i-1, j-1) all three states, (i-1, j) NW and N;
+      // row 0 reads the virtual top row, past the previous row's prefix
+      // its border
+      int4 dnw = b_nw, dn = b_n, dw = b_w, nnw = b_nw, nn = b_n;
+      if (i > 0) {
+        const int kn = u + d;
+        const int kd = kn - 1;
+        if ((unsigned)kd < (unsigned)nc_p) {
+          dnw = row[3 * kd];
+          dn = row[3 * kd + 1];
+          dw = row[3 * kd + 2];
+        }
+        if ((unsigned)kn < (unsigned)nc_p) {
+          nnw = row[3 * kn];
+          nn = row[3 * kn + 1];
+        }
+      }
+      __syncwarp();  // every read of this segment precedes the writes
+      if (pend_u >= 0) {
+        row[3 * pend_u] = pend0;
+        row[3 * pend_u + 1] = pend1;
+        row[3 * pend_u + 2] = pend2;
+      }
       const int gi = u + gsh;
-      const int gc = gi < G ? (int)g[gi] : GENOME_PAD;
+      const int gc = gi < G ? (int)sg[gi] : GENOME_PAD;
 
       // per-source-layer first strict maxima of the diagonal (NW) and
       // north (N) candidates
       int md_s[4], md_p[4], mn_s[4], mn_p[4];
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
-        int d_nw, d_n, d_w, n_nw, n_n;
-        if (i == 0) {  // virtual top row, global crossover for k > 0
-          const int e = l ? p.gxp : 0;
-          d_nw = n_nw = e;
-          d_n = n_n = p.b_go + e;
-          d_w = p.a_go + e;
-        } else {
-          const int e = l ? xp_prev : 0;
-          const int b_nw = loc ? e : NEG_INF;
-          const int b_n = loc ? p.b_go + e : NEG_INF;
-          const int b_w = loc ? p.a_go + e : NEG_INF;
-          if (kk >= 1 && kk <= W) {
-            d_nw = prv[(0 * 4 + l) * W + kk - 1];
-            d_n = prv[(1 * 4 + l) * W + kk - 1];
-            d_w = prv[(2 * 4 + l) * W + kk - 1];
-          } else {
-            d_nw = b_nw;
-            d_n = b_n;
-            d_w = b_w;
-          }
-          if (kk <= W - 1) {
-            n_nw = prv[(0 * 4 + l) * W + kk];
-            n_n = prv[(1 * 4 + l) * W + kk];
-          } else {
-            n_nw = b_nw;
-            n_n = b_n;
-          }
-        }
-        if (!tok) d_n = NEG_INF;
-        int s, pp;
+        const int d_nw = lane4(dnw, l);
+        const int d_n = tok ? lane4(dn, l) : NEG_INF;
+        const int d_w = lane4(dw, l);
+        int sc, pp;
         if (!rc) {
-          s = d_nw; pp = ptr_code(l, STATE_NW);
-          if (d_n > s) { s = d_n; pp = ptr_code(l, STATE_N); }
-          if (d_w > s) { s = d_w; pp = ptr_code(l, STATE_W); }
+          sc = d_nw; pp = ptr_code(l, STATE_NW);
+          if (d_n > sc) { sc = d_n; pp = ptr_code(l, STATE_N); }
+          if (d_w > sc) { sc = d_w; pp = ptr_code(l, STATE_W); }
         } else {
-          s = d_w; pp = ptr_code(l, STATE_W);
-          if (d_n > s) { s = d_n; pp = ptr_code(l, STATE_N); }
-          if (d_nw > s) { s = d_nw; pp = ptr_code(l, STATE_NW); }
+          sc = d_w; pp = ptr_code(l, STATE_W);
+          if (d_n > sc) { sc = d_n; pp = ptr_code(l, STATE_N); }
+          if (d_nw > sc) { sc = d_nw; pp = ptr_code(l, STATE_NW); }
         }
-        md_s[l] = s;
+        md_s[l] = sc;
         md_p[l] = pp;
-        const int c1 = tok ? n_nw - p.boe : NEG_INF;
-        const int c2 = n_n - p.be;
+        const int c1 = tok ? lane4(nnw, l) - p.boe : NEG_INF;
+        const int c2 = lane4(nn, l) - p.be;
         if (!rc) {
-          s = c1; pp = ptr_code(l, STATE_NW);
-          if (c2 > s) { s = c2; pp = ptr_code(l, STATE_N); }
+          sc = c1; pp = ptr_code(l, STATE_NW);
+          if (c2 > sc) { sc = c2; pp = ptr_code(l, STATE_N); }
         } else {
-          s = c2; pp = ptr_code(l, STATE_N);
-          if (c1 > s) { s = c1; pp = ptr_code(l, STATE_NW); }
+          sc = c2; pp = ptr_code(l, STATE_N);
+          if (c1 > sc) { sc = c1; pp = ptr_code(l, STATE_NW); }
         }
-        mn_s[l] = s;
+        mn_s[l] = sc;
         mn_p[l] = pp;
       }
 
-      const bool valid = u <= bw && xc + u < glen;
+      // each destination layer's NW and N: own layer first, then the
+      // cross layers ascending
+      int o_nw[4], o_n[4], w_fl[4], o_p[4], inc[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int reset = k ? xp : 0;
-        const int ms = (gc == BASE_N || qk[k] == BASE_N)
+        const int qk = (int)(int8_t)(qpack >> (8 * k));
+        const int ms = (gc == BASE_N || qk == BASE_N)
                            ? 0
-                           : (gc == qk[k] ? p.match : p.mismatch);
-        // NW: own layer first, then the cross layers ascending
+                           : (gc == qk ? p.match : p.mismatch);
         int s_nw = md_s[k] + ms, p_nw = md_p[k];
 #pragma unroll
         for (int l = 0; l < 4; ++l) {
           if (l == k) continue;
-          const int c = md_s[l] + ms + xp;
-          if (c > s_nw) { s_nw = c; p_nw = md_p[l]; }
+          const int cand = md_s[l] + ms + xp;
+          if (cand > s_nw) { s_nw = cand; p_nw = md_p[l]; }
         }
         if (loc && s_nw <= reset) { s_nw = reset; p_nw = 0; }
-        // N
         int s_n = mn_s[k], p_n = mn_p[k];
 #pragma unroll
         for (int l = 0; l < 4; ++l) {
           if (l == k) continue;
-          const int c = mn_s[l] + xp;
-          if (c > s_n) { s_n = c; p_n = mn_p[l]; }
+          const int cand = mn_s[l] + xp;
+          if (cand > s_n) { s_n = cand; p_n = mn_p[l]; }
         }
         if (loc && s_n <= reset) { s_n = reset; p_n = 0; }
-        // W: tilted prefix max over [border NW, floored NW row]
-        int incl = (tok ? s_nw : NEG_INF) + p.ae * (u + 1);
+        o_nw[k] = s_nw;
+        o_n[k] = s_n;
+        o_p[k] = p_nw | (p_n << 4);
+        inc[k] = (tok ? s_nw : NEG_INF) + p.ae * (u + 1);
+      }
+      // each layer's W state: a tilted prefix max over [border NW, floored
+      // NW row] across the tile, the four scans side by side
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int v = __shfl_up_sync(FULL, incl, off);
-          if (lane >= off) incl = max(incl, v);
-        }
-        int excl = __shfl_up_sync(FULL, incl, 1);
-        excl = lane == 0 ? c_run[k] : max(excl, c_run[k]);
-        const int col_w = loc ? p.a_go + reset : NEG_INF;
-        int s_w = max(excl - p.aoe - p.ae * u, col_w - p.ae * (u + 1));
-        const int w_fl = loc ? max(s_w, reset) : s_w;
-        int nw_west = __shfl_up_sync(FULL, s_nw, 1);
-        int w_west = __shfl_up_sync(FULL, w_fl, 1);
-        if (lane == 0) { nw_west = c_nw[k]; w_west = c_w[k]; }
+      for (int o = 1; o < T; o <<= 1)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          inc[k] = max(inc[k], __shfl_up_sync(FULL, inc[k], o, T));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int reset = k ? xp : 0;
+        int excl = __shfl_up_sync(FULL, inc[k], 1, T);
+        excl = tl == 0 ? c_run[k] : max(excl, c_run[k]);
+        const int sw = max(excl - p.aoe - p.ae * u,
+                           lane4(c_w4, k) - p.ae * (u + 1));
+        w_fl[k] = loc ? max(sw, reset) : sw;
+        int nw_west = __shfl_up_sync(FULL, o_nw[k], 1, T);
+        int w_west = __shfl_up_sync(FULL, w_fl[k], 1, T);
+        if (tl == 0) { nw_west = c_nw[k]; w_west = c_w[k]; }
         const int cnw = tok ? nw_west - p.aoe : NEG_INF;
         const int cw = w_west - p.ae;
-        int p_w = rc ? (cw >= cnw ? ptr_code(k, STATE_W) : ptr_code(k, STATE_NW))
-                     : (cnw >= cw ? ptr_code(k, STATE_NW) : ptr_code(k, STATE_W));
-        if (loc && s_w <= reset) { s_w = reset; p_w = 0; }
-        c_nw[k] = __shfl_sync(FULL, s_nw, 31);
-        c_w[k] = __shfl_sync(FULL, w_fl, 31);
-        c_run[k] = max(c_run[k], __shfl_sync(FULL, incl, 31));
-
-        // band-width + grid masking to the row's border values
-        if (!valid) {
-          s_nw = loc ? reset : NEG_INF;
-          s_n = loc ? p.b_go + reset : NEG_INF;
-          s_w = col_w;
-          p_nw = p_n = p_w = 0;
-        }
-        if (live) {
-          if (valid && eligible_row) {
-            const int cell = __vimax3_s32(s_nw, s_n, s_w);
-            if (cell > lb) {
-              lb = cell; li = i; lu = u; lj = xc + u; lk = k;
-              lnw = s_nw; ln = s_n; lw = s_w;
-            }
-          }
-          cur[(0 * 4 + k) * W + u] = s_nw;
-          cur[(1 * 4 + k) * W + u] = s_n;
-          cur[(2 * 4 + k) * W + u] = s_w;
-          brow[k * W + u] = (uint16_t)(p_nw | (p_n << 4) | (p_w << 8));
-        }
+        int p_w = rc ? (cw >= cnw ? ptr_code(k, STATE_W)
+                                  : ptr_code(k, STATE_NW))
+                     : (cnw >= cw ? ptr_code(k, STATE_NW)
+                                  : ptr_code(k, STATE_W));
+        // the floored W equals w_fl; a floored cell has no pointer
+        if (loc && w_fl[k] <= reset) p_w = 0;
+        o_p[k] |= p_w << 8;
+        c_nw[k] = __shfl_sync(FULL, o_nw[k], T - 1, T);
+        c_w[k] = __shfl_sync(FULL, w_fl[k], T - 1, T);
+        c_run[k] = max(c_run[k], __shfl_sync(FULL, inc[k], T - 1, T));
       }
+      // best cell in (column, layer) order, the pointers, pending states
+      const bool act = u < nci;
+      if (act) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int cell = __vimax3_s32(o_nw[k], o_n[k], w_fl[k]);
+          if (elig && cell > lb) {
+            lb = cell;
+            lpos = ((i * W + u) << 2) | k;
+            lst = w_fl[k] > o_nw[k] ? STATE_W : STATE_NW;
+            if (o_n[k] > max(o_nw[k], w_fl[k])) lst = STATE_N;
+          }
+        }
+        prow[u] = make_ushort4((unsigned short)o_p[0], (unsigned short)o_p[1],
+                               (unsigned short)o_p[2], (unsigned short)o_p[3]);
+      }
+      pend0 = make_int4(o_nw[0], o_nw[1], o_nw[2], o_nw[3]);
+      pend1 = make_int4(o_n[0], o_n[1], o_n[2], o_n[3]);
+      pend2 = make_int4(w_fl[0], w_fl[1], w_fl[2], w_fl[3]);
+      pend_u = act ? u : -1;
     }
     __syncwarp();
-    int* t = prv; prv = cur; cur = t;
+    if (pend_u >= 0) {
+      row[3 * pend_u] = pend0;
+      row[3 * pend_u + 1] = pend1;
+      row[3 * pend_u + 2] = pend2;
+    }
+    __syncwarp();
+    nc_p = nci;
     xmin_p = xc;
+    xp_p = xp;
   }
 
-  // best cell: max score, then the lowest row, then the lowest column
-  const int score = __reduce_max_sync(FULL, lb);
-  const bool m1 = lb == score;
-  const int imin = __reduce_min_sync(FULL, m1 ? li : INT_MAX);
-  const bool m2 = m1 && li == imin;
-  const int umin = __reduce_min_sync(FULL, m2 ? lu : INT_MAX);
-  const int src = __ffs(__ballot_sync(FULL, m2 && lu == umin)) - 1;
-  const int bi = __shfl_sync(FULL, li, src);
-  const int bj = __shfl_sync(FULL, lj, src);
-  const int bk = __shfl_sync(FULL, lk, src);
-  const int s_nw0 = __shfl_sync(FULL, lnw, src);
-  const int s_n0 = __shfl_sync(FULL, ln, src);
-  const int s_w0 = __shfl_sync(FULL, lw, src);
-  __syncwarp();  // the pointer rows written by all lanes are visible
+  PASS2_PROBE(1);
+  // best cell over the tile: max score, then the lowest (i*W + u)*4 + k
+#pragma unroll
+  for (int o = T >> 1; o; o >>= 1) {
+    const int ob = __shfl_xor_sync(FULL, lb, o, T);
+    const int opos = __shfl_xor_sync(FULL, lpos, o, T);
+    const int ost = __shfl_xor_sync(FULL, lst, o, T);
+    if (ob > lb || (ob == lb && opos < lpos)) {
+      lb = ob;
+      lpos = opos;
+      lst = ost;
+    }
+  }
+  __syncwarp();  // the pointers written by all lanes are visible
 
   int nops = 0;
-  if (lane == 0) {
-    int state = STATE_NW, sb = s_nw0;
-    if (s_w0 > sb) { state = STATE_W; sb = s_w0; }
-    if (s_n0 > sb) state = STATE_N;
-    int i = bi, j = bj, k = bk;
+  if (tl == 0 && live) {
     int rs = 0, gs = 0, mt = 0, mm = 0, ins = 0, dl = 0, xo = 0;
-    bool active = score > 0;
-    for (int step = 0; active && step < L; ++step) {
-      const int ii = min(max(i, 0), R - 1);
-      const int jj = min(max(j, 0), G - 1);
-      const int ur = jj - xmin[ii];
-      const int cell =
-          (ur >= 0 && ur < W) ? bt[((long long)ii * 4 + k) * W + ur] : 0;
-      const int ptr = (cell >> (4 * state)) & 15;
-      if (ptr == 0) break;
-      const int sl = (ptr - 1) / 3, ss = (ptr - 1) % 3;
-      const bool xv = sl != k;
-      int op;
-      if (state == STATE_NW) {
-        const int gch = g[jj], qch = q[k * R + ii];
-        if (gch == qch || gch == BASE_N || qch == BASE_N) ++mt; else ++mm;
-        rs = i; gs = j;
-        --i; --j;
-        op = OP_MATCH;
-      } else if (state == STATE_N) {
-        ++dl;
-        rs = i;
-        --i;
-        op = OP_DEL;
-      } else {
-        ++ins;
-        gs = j;
-        --j;
-        op = OP_INS;
+    int k = 0;
+    if (lb > 0) {
+      const int cellpos = lpos >> 2;
+      k = lpos & 3;
+      int i = cellpos / W;
+      int j = info[i].x + (cellpos - i * W);
+      int state = lst;
+      const auto* pl = reinterpret_cast<const unsigned short*>(plane);
+      for (int step = 0; step < L; ++step) {
+        const int ii = min(max(i, 0), R - 1);
+        const int jj = min(max(j, 0), G - 1);
+        const int4 rr = info[ii];
+        const int ur = jj - rr.x;
+        const int cell =
+            (unsigned)ur < (unsigned)rr.y ? pl[(rr.z + ur) * 4 + k] : 0;
+        const int ptr = (cell >> (4 * state)) & 15;
+        if (ptr == 0) break;
+        const int sl = (ptr - 1) / 3, ss = (ptr - 1) % 3;
+        const bool xv = sl != k;
+        int op;
+        if (state == STATE_NW) {
+          const int gch = sg[jj];
+          const int qch = (int)(int8_t)(sq[ii] >> (8 * k));
+          if (gch == qch || gch == BASE_N || qch == BASE_N) ++mt; else ++mm;
+          rs = i; gs = j;
+          --i; --j;
+          op = OP_MATCH;
+        } else if (state == STATE_N) {
+          ++dl;
+          rs = i;
+          --i;
+          op = OP_DEL;
+        } else {
+          ++ins;
+          gs = j;
+          --j;
+          op = OP_INS;
+        }
+        opbuf[nops++] = (uint8_t)(op | (k << 2) | (xv ? OP_XOVER : 0));
+        xo += xv;
+        k = sl;
+        state = ss;
+        if (i < 0 || j < 0) break;
       }
-      opbuf[nops++] = (uint8_t)(op | (k << 2) | (xv ? OP_XOVER : 0));
-      xo += xv;
-      k = sl;
-      state = ss;
-      active = i >= 0 && j >= 0;
     }
     // beginning in a non-primary layer costs one more crossover, flagged
     // on the first column
@@ -349,47 +529,44 @@ __global__ void sw_full_cs_kernel(
       opbuf[nops - 1] |= OP_XOVER;
       ++xo;
     }
-    int* s = stats + (long long)b * 11;
-    s[0] = score; s[1] = rs; s[2] = gs; s[3] = mt; s[4] = mm;
-    s[5] = ins; s[6] = dl; s[7] = mt + mm + dl; s[8] = mt + mm + ins;
-    s[9] = nops; s[10] = xo;
+    int* st = stats + (long long)b * 11;
+    st[0] = lb; st[1] = rs; st[2] = gs; st[3] = mt; st[4] = mm;
+    st[5] = ins; st[6] = dl; st[7] = mt + mm + dl; st[8] = mt + mm + ins;
+    st[9] = nops; st[10] = xo;
   }
-  nops = __shfl_sync(FULL, nops, 0);
+  nops = __shfl_sync(FULL, nops, 0, T);
   __syncwarp();
-  uint8_t* orow = ops + (long long)b * L;
-  for (int t = lane; t < L; t += 32)
-    orow[t] = t < nops ? opbuf[nops - 1 - t] : (uint8_t)0;
+  if (live) {
+    uint8_t* orow = ops + (long long)b * L;
+    for (int t = tl; t < L; t += T)
+      orow[t] = t < nops ? opbuf[nops - 1 - t] : (uint8_t)0;
+  }
+  PASS2_PROBE(2);
 }
 
-}  // namespace
-
-// One launch over B alignments: genome int8 [B, G] (GENOME_PAD-padded),
-// qr4 int8 [B, 4, R] (READ_PAD-padded), xover int32 [B, R], revcmpl uint8
-// [B], band_xmin / band_xmax int32 [B, R]; bits is uint16 scratch of
-// B * R * 4 * W entries; stats int32 [B, 11] and ops uint8 [B, R + G] are
-// written in full.  shift_max is the TPU kernel's shift clip (smallest
-// power of two >= G, minus 1).  Scoring parameters are the reference's
-// signed scores, crossover included.  Runs on `stream`, allocates
-// nothing, returns cudaGetLastError().
-extern "C" int sw_full_cs_launch(
-    const void* genome, const void* qr4, const void* xover,
-    const void* revcmpl, const void* band_xmin, const void* band_xmax, int B,
-    int G, int R, int W, int shift_max, int local, int taboo_len, int match,
-    int mismatch, int a_gap_open, int a_gap_extend, int b_gap_open,
-    int b_gap_extend, int crossover, void* bits, void* stats, void* ops,
-    void* stream) {
-  if (B <= 0) return 0;
-  const size_t per_warp =
-      (size_t)24 * W * sizeof(int) + (size_t)((R + G + 15) & ~15);
-  int warps = (int)(SMEM_BUDGET / per_warp);
-  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
-  const size_t smem = per_warp * warps;
+template <int T, bool STAGE>
+int launch(const int8_t* genome, const int8_t* qr4, const int* xover,
+           const uint8_t* revcmpl, const int* band_xmin,
+           const int* band_xmax, int B, int G, int R, int W, int shift_max,
+           int local, int taboo_len, Params p, int per, uint8_t* scratch,
+           int* stats, uint8_t* ops, cudaStream_t stream) {
+  const int smem = (32 / T) * Layout(G, R, W, STAGE).bytes;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sw_full_cs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        sw_full_cs_kernel<T, STAGE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const int grid = (B + 32 / T - 1) / (32 / T);
+  sw_full_cs_kernel<T, STAGE><<<grid, 32, smem, stream>>>(
+      genome, qr4, xover, revcmpl, band_xmin, band_xmax, B, G, R, W,
+      shift_max, local, taboo_len, p, per, scratch, stats, ops);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(int match, int mismatch, int a_gap_open, int a_gap_extend,
+                   int b_gap_open, int b_gap_extend, int crossover) {
   Params p;
   p.match = match;
   p.mismatch = mismatch;
@@ -400,13 +577,59 @@ extern "C" int sw_full_cs_launch(
   p.a_go = a_gap_open;
   p.b_go = b_gap_open;
   p.gxp = crossover;
-  const int grid = (B + warps - 1) / warps;
-  sw_full_cs_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)genome, (const int8_t*)qr4, (const int*)xover,
-      (const uint8_t*)revcmpl, (const int*)band_xmin, (const int*)band_xmax,
-      B, G, R, W, shift_max, local, taboo_len, p, (uint16_t*)bits,
-      (int*)stats, (uint8_t*)ops);
-  return (int)cudaGetLastError();
+  return p;
+}
+
+}  // namespace
+
+// The launch's shape for an alignment of G, R, W: out = (lanes a tile,
+// staged, global scratch bytes an alignment).  Returns -1 when an
+// alignment does not fit a block's shared memory, else 0.
+extern "C" int sw_full_cs_plan(int G, int R, int W, int* out) {
+  Plan pl;
+  if (!make_plan(G, R, W, pl)) return -1;
+  out[0] = pl.T; out[1] = pl.stage; out[2] = pl.per;
+  return 0;
+}
+
+// One launch over B alignments: genome int8 [B, G] (GENOME_PAD-padded),
+// qr4 int8 [B, 4, R] (READ_PAD-padded), xover int32 [B, R], revcmpl uint8
+// [B], band_xmin / band_xmax int32 [B, R]; stats int32 [B, 11] and ops
+// uint8 [B, R + G] are written in full.  shift_max is the TPU kernel's
+// shift clip (smallest power of two >= G, minus 1).  scratch holds B times
+// the bytes sw_full_cs_plan gives an alignment.  Scoring parameters are
+// the reference's signed scores, crossover included.  Runs on `stream`,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int sw_full_cs_launch(
+    const void* genome, const void* qr4, const void* xover,
+    const void* revcmpl, const void* band_xmin, const void* band_xmax, int B,
+    int G, int R, int W, int shift_max, int local, int taboo_len, int match,
+    int mismatch, int a_gap_open, int a_gap_extend, int b_gap_open,
+    int b_gap_extend, int crossover, void* scratch, void* stats, void* ops,
+    void* stream) {
+  if (B <= 0) return 0;
+  Plan pl;
+  if (!make_plan(G, R, W, pl)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(match, mismatch, a_gap_open, a_gap_extend,
+                               b_gap_open, b_gap_extend, crossover);
+  auto* g = (const int8_t*)genome;
+  auto* q = (const int8_t*)qr4;
+  auto* xo = (const int*)xover;
+  auto* rc = (const uint8_t*)revcmpl;
+  auto* x0 = (const int*)band_xmin;
+  auto* x1 = (const int*)band_xmax;
+  auto* sc = (uint8_t*)scratch;
+  auto* st = (int*)stats;
+  auto* op = (uint8_t*)ops;
+  auto* s = (cudaStream_t)stream;
+  if (!pl.stage)
+    return launch<32, false>(g, q, xo, rc, x0, x1, B, G, R, W, shift_max,
+                             local, taboo_len, p, pl.per, sc, st, op, s);
+  if (pl.T == 16)
+    return launch<16, true>(g, q, xo, rc, x0, x1, B, G, R, W, shift_max,
+                            local, taboo_len, p, pl.per, sc, st, op, s);
+  return launch<32, true>(g, q, xo, rc, x0, x1, B, G, R, W, shift_max, local,
+                          taboo_len, p, pl.per, sc, st, op, s);
 }
 
 extern "C" const char* shrimp_error_string(int e) {

@@ -14,7 +14,9 @@ Two versions of `sw_full_and_traceback_packed`:
     `traceback_batch_packed`), a row loop and a walk loop mirroring
     `sw_full_batch_packed` / `traceback_batch_packed_jax`; CPU tensors
     only;
-  * the CUDA kernel `csrc/sw_full.cu` (K3 + K4 in one launch), through
+  * the CUDA kernel `csrc/sw_full.cu` (K3 + K4 in one launch: a tile of
+    lanes an alignment sweeping each row's band only, its shape and tiers
+    fixed by the launcher from (G, R, W), `launch_plan`), through
     `sw_full_and_traceback_packed_cuda`.
 The NumPy helpers (`compute_band`, `SWAlignment`, `render_alignment`, the
 op and pointer codes) are carried over unchanged.
@@ -423,8 +425,24 @@ def _lib() -> ctypes.CDLL:
         lib.sw_full_launch.argtypes = [
             vp, vp, vp, vp, vp, i, i, i, i, i, i,
             i, i, i, i, i, i, vp, vp, vp, vp]
+        lib.sw_full_plan.restype = ctypes.c_int
+        lib.sw_full_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
         _LIB = lib
     return _LIB
+
+
+def launch_plan(G: int, R: int, W: int) -> dict:
+    """The kernel's shape for alignments of G, R, W, as its launcher
+    fixes it: lanes a tile, columns a lane, whether the per-row inputs and
+    window are staged in shared memory, the shared pointer-plane budget
+    and the global scratch bytes an alignment.  Raises when an alignment
+    does not fit a block's shared memory."""
+    out = (ctypes.c_int * 5)()
+    if _lib().sw_full_plan(G, R, W, out):
+        raise ValueError(f"sw_full: an alignment of G {G}, R {R}, W {W} "
+                         "does not fit a block's shared memory")
+    return dict(zip(("lanes", "cols", "staged", "plane_smem",
+                     "scratch_per_alignment"), out))
 
 
 def sw_full_and_traceback_packed_cuda(genome, read, revcmpl, band_xmin,
@@ -453,8 +471,10 @@ def sw_full_and_traceback_packed_cuda(genome, read, revcmpl, band_xmin,
     ops = torch.empty((B, R + G), dtype=torch.uint8, device=dev)
     if B == 0:
         return stats, ops
-    bits = torch.empty(B * R * W, dtype=torch.uint8, device=dev)
     lib = _lib()
+    per = launch_plan(G, R, W)["scratch_per_alignment"]
+    scratch = (torch.empty(B * per, dtype=torch.uint8, device=dev)
+               if per else None)
     p = params
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -463,7 +483,8 @@ def sw_full_and_traceback_packed_cuda(genome, read, revcmpl, band_xmin,
             band_xmin.data_ptr(), band_xmax.data_ptr(), B, G, R, W,
             shift_max(G), int(bool(local_alignment)), p.match, p.mismatch,
             p.a_gap_open, p.a_gap_extend, p.b_gap_open, p.b_gap_extend,
-            bits.data_ptr(), stats.data_ptr(), ops.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(),
+            stats.data_ptr(), ops.data_ptr(), stream)
     _build.check_launch(lib, "sw_full", rc)
     LAUNCHES.add()
     return stats, ops

@@ -25,8 +25,10 @@ Two versions of `sw_full_cs_and_traceback_packed`:
     `traceback_cs_batch_packed`), a row loop and a walk loop mirroring
     `sw_full_cs_batch_packed` / `traceback_cs_batch_packed_jax`; CPU
     tensors only;
-  * the CUDA kernel `csrc/sw_full_cs.cu` (K7 + K8 in one launch), through
-    `sw_full_cs_and_traceback_packed_cuda`.
+  * the CUDA kernel `csrc/sw_full_cs.cu` (K7 + K8 in one launch: a tile
+    of lanes an alignment sweeping each row's band only, pointers in a
+    global scratch, its shape fixed by the launcher from (G, R, W),
+    `launch_plan`), through `sw_full_cs_and_traceback_packed_cuda`.
 Run at W = round_up(G, 32) over the full band [0, w_len - 1], the packed
 form equals the unbanded `sw_full_cs_and_traceback_jax` (K9) bit for bit.
 The NumPy helpers (codes, `cross_layers`, `render_alignment_cs`,
@@ -444,8 +446,25 @@ def _lib() -> ctypes.CDLL:
         lib.sw_full_cs_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
             i, i, i, i, i, i, i, vp, vp, vp, vp]
+        lib.sw_full_cs_plan.restype = ctypes.c_int
+        lib.sw_full_cs_plan.argtypes = [i, i, i,
+                                        ctypes.POINTER(ctypes.c_int)]
         _LIB = lib
     return _LIB
+
+
+def launch_plan(G: int, R: int, W: int) -> dict:
+    """The kernel's shape for alignments of G, R, W, as its launcher
+    fixes it: lanes a tile, whether the per-row inputs and window are
+    staged in shared memory, and the global scratch bytes an alignment
+    (the pointer plane, R * W * 8, and when not staged the per-row
+    inputs).  Raises when an alignment does not fit a block's shared
+    memory."""
+    out = (ctypes.c_int * 3)()
+    if _lib().sw_full_cs_plan(G, R, W, out):
+        raise ValueError(f"sw_full_cs: an alignment of G {G}, R {R}, "
+                         f"W {W} does not fit a block's shared memory")
+    return dict(zip(("lanes", "staged", "scratch_per_alignment"), out))
 
 
 def sw_full_cs_and_traceback_packed_cuda(genome, qr4, xover_row, revcmpl,
@@ -480,9 +499,9 @@ def sw_full_cs_and_traceback_packed_cuda(genome, qr4, xover_row, revcmpl,
     ops = torch.empty((B, R + G), dtype=torch.uint8, device=dev)
     if B == 0:
         return stats, ops
-    # uint16 pointer scratch [B, R, 4, W] (int16 storage, bits only)
-    bits = torch.empty(B * R * 4 * W, dtype=torch.int16, device=dev)
     lib = _lib()
+    per = launch_plan(G, R, W)["scratch_per_alignment"]
+    scratch = torch.empty(B * per, dtype=torch.uint8, device=dev)
     p = params
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -492,7 +511,7 @@ def sw_full_cs_and_traceback_packed_cuda(genome, qr4, xover_row, revcmpl,
             B, G, R, W, shift_max(G), int(bool(local_alignment)),
             int(taboo_len), p.match, p.mismatch, p.a_gap_open,
             p.a_gap_extend, p.b_gap_open, p.b_gap_extend, p.crossover,
-            bits.data_ptr(), stats.data_ptr(), ops.data_ptr(), stream)
+            scratch.data_ptr(), stats.data_ptr(), ops.data_ptr(), stream)
     _build.check_launch(lib, "sw_full_cs", rc)
     LAUNCHES.add()
     return stats, ops

@@ -243,6 +243,98 @@ def test_sw_full_equals_plain(cuda_device, loc, B, G, R, rlen, W):
     assert torch.equal(got[1].cpu(), want[1])
 
 
+def _full_band(args):
+    """The bands of a case replaced by the full band [0, glen - 1]."""
+    gb = args[0]
+    B, R = args[-1].shape
+    glen = (gb >= 0).sum(1).to(torch.int32)
+    return (*args[:-2], torch.zeros((B, R), dtype=torch.int32),
+            (glen - 1)[:, None].expand(B, R).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,R,rlen,W,params,full", [
+    (256, 128, 56, 50, 64, ASYM, False), (256, 128, 56, 50, 64, ODD, False),
+    (0, 128, 56, 50, 64, LS, False), (1, 128, 56, 50, 64, LS, False),
+    (13, 128, 56, 50, 64, ASYM, False), (77, 128, 56, 50, 32, LS, False),
+    (96, 256, 100, 90, 96, ODD, False), (64, 640, 408, 400, 192, ASYM, False),
+    (16, 640, 80, 70, 640, LS, True), (24, 1408, 1000, 1000, 64, LS, False),
+    (3, 6144, 6000, 6000, 64, LS, False)],
+    ids=["asym", "odd", "b0", "b1", "b13", "w32", "w96", "w192",
+         "full_g640", "r1000", "r6000"])
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
+def test_sw_full_cases_equal_plain(cuda_device, loc, B, G, R, rlen, W,
+                                   params, full):
+    """The tiled kernel at every tile shape it picks from W (32 to 640),
+    for batches that fill no whole warp, with its pointer planes in
+    shared memory (the 50-row reads), in the global scratch (1,000-row
+    reads, the full band at G 640), and with 6,000-row reads, whose
+    per-row inputs do not fit a block beside a second tile."""
+    args = _pass2_inputs(B + G + W, max(B, 1), G, R, rlen, W)
+    args = [a[:B] for a in (_full_band(args) if full else args)]
+    want = tsf.sw_full_and_traceback_packed_plain(*args, params, loc, W)
+    before = tsf.LAUNCHES.value
+    got = tsf.sw_full_and_traceback_packed(
+        *[a.to(cuda_device) for a in args], params, loc, W)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert tsf.LAUNCHES.value == before + (B > 0)
+
+
+@pytest.mark.cuda
+def test_pass2_launch_plans(cuda_device):
+    """The launchers' tiers: the main path's alignments (R 56, W 64)
+    staged two to a warp, letter space with its plane budget and a global
+    plane allocated for the alignments that overflow it; 6,000-row reads
+    one to a warp, their per-row inputs in the scratch; too large a read
+    refused before any launch."""
+    assert tsf.launch_plan(128, 56, 64) == {
+        "lanes": 16, "cols": 2, "staged": 1, "plane_smem": 2048,
+        "scratch_per_alignment": 56 * 64}
+    assert tsf.launch_plan(640, 408, 192)["lanes"] == 32
+    assert tsf.launch_plan(6144, 6000, 64) == {
+        "lanes": 32, "cols": 2, "staged": 0, "plane_smem": 0,
+        "scratch_per_alignment": 6000 * 16 + 6000 * 64}
+    assert tcs.launch_plan(128, 56, 64) == {
+        "lanes": 16, "staged": 1, "scratch_per_alignment": 56 * 64 * 8}
+    assert tcs.launch_plan(128, 56, 96)["lanes"] == 32
+    assert tcs.launch_plan(6144, 6000, 64) == {
+        "lanes": 32, "staged": 0,
+        "scratch_per_alignment": 6000 * 64 * 8 + 6000 * 20}
+    with pytest.raises(ValueError):
+        tsf.launch_plan(120_000, 120_000, 64)
+    with pytest.raises(ValueError):
+        tcs.launch_plan(120_000, 120_000, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=256, G=128, R=56, rlen=50, W=64, per_colour=True, taboo=6),
+    dict(B=13, G=128, R=56, rlen=50, W=64, n_rate=0.05),
+    dict(B=1, G=96, R=64, rlen=50, band="jump", taboo=3),
+    dict(B=48, G=256, R=100, rlen=90, W=96),
+    dict(B=16, G=640, R=80, rlen=70, band="full"),
+    dict(B=8, G=1408, R=1000, rlen=1000, W=64, per_colour=True),
+    dict(B=3, G=6144, R=6000, rlen=6000, W=64, per_colour=True, taboo=4),
+], ids=["anchor", "b13_n", "b1_jump", "w96", "full_g640", "r1000", "r6000"])
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
+def test_sw_full_cs_tiers_equal_plain(cuda_device, loc, case):
+    """The colour-space kernel with its per-row inputs staged in shared
+    memory, two tiles a warp (W <= 64) or one, and with 6,000-row reads,
+    whose per-row inputs stay in the global scratch."""
+    case = dict(case)
+    taboo = case.pop("taboo", 0)
+    args = _cs_pass2_inputs(11, **case)
+    bw = int((args[5] - args[4]).max()) + 1
+    G = case["G"]
+    W = -(-G // 32) * 32 if case.get("band") == "full" else -(-bw // 32) * 32
+    want = tcs.sw_full_cs_and_traceback_packed_plain(*args, CS, loc, taboo, W)
+    got = tcs.sw_full_cs_and_traceback_packed(
+        *[a.to(cuda_device) for a in args], CS, loc, taboo, W)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,R", [(128, 56), (640, 408), (20, 24),
                                  (100, 1000)])
