@@ -19,9 +19,14 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               width), 1,000-row reads (the global pointer tier), 6,000-row
               reads (per-row inputs in the global scratch); in colour
               space also per-row crossovers, indel taboo, N codes, a band
-              jumping past the shift clip, the full band; gapless with
-              and without the s0 override); integer outputs must be
-              exactly equal
+              jumping past the shift clip, the full band; gapless
+              pre-gathered with and without the s0 override, and the fused
+              gapless gather in both spaces: both strands, diagonals
+              starting late in the read, ending at or before their contig's
+              end or at the plane's last bytes, the forced first colour on
+              N letters and N colours, reads of mixed length, R of 8, 37,
+              56, 512, 1,000 and 5,000, launches of 0 and 1 hit); integer
+              outputs must be exactly equal
   4. goldens  golden_unpaired / golden_long_reads / med_ls, then
               golden_cs / med_cs, mapped through the kernels, and the
               gapless golden_cs_mirna / golden_cs_ungapped /
@@ -53,13 +58,23 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               the same profiled warm run; what "auto"
               chooses on the first two batches; K10 timed against its
               plain version on the largest call
-  9. size-cs  the colour-space path on the same contigs: a colour-space
+  9. size-gapless  the same index and reads as `gmapper -U --local`
+              maps them (gapless pass 1, anchor width 0, local), device
+              candidates on the postings size-l3 made resident; the pass-1
+              stage split into dispatch, wait and finish, launches, peak
+              memory, quality, the SAM digest; the first 2,048 reads again
+              through the plain versions; the gapless kernel timed against
+              its plain version on the largest call
+ 10. size-cs  the colour-space path on the same contigs: a colour-space
               index, 8,192 SOLiD reads (synth.make_cs_reads, seed 23,
               50 bp) in batches of 2,048, the fw||rc colour and letter
               planes resident on the card, host candidates; launch counts;
               the first 1,024 reads again through the plain versions;
-              each new kernel timed against its plain version (the gapless
-              kernel on a random batch of the largest pass-1 launch)
+              each colour-space kernel timed against its plain version
+ 11. size-cs-gapless  that index and those reads with -U --local, host
+              candidates: what size-gapless reports, the first 1,024
+              reads through the plain versions, the gapless kernel timed
+              on the largest call
 
 Each timing line gives a kernel's `ms` (CUDA events around 20 calls of
 its wrapper: where a kernel's device time is below its wrapper's host
@@ -894,11 +909,32 @@ def _gapless_case(rng, N: int, R: int):
     return diag, reads, s0
 
 
+def _check_gapless_gather(args, cs: bool, params, what: str) -> None:
+    import torch
+
+    from shrimp_tpu_torch.ops import sw_gapless
+    cuda = torch.device("cuda", 0)
+    plain, kernel = ((sw_gapless.p1_gather_gapless_cs_plain,
+                      sw_gapless.p1_gather_gapless_cs_cuda) if cs else
+                     (sw_gapless.p1_gather_gapless_ls_plain,
+                      sw_gapless.p1_gather_gapless_ls_cuda))
+    want = plain(*args, params)
+    got = kernel(*[a.to(cuda) for a in args], params)
+    err = max_abs_err(got, want)
+    if err:
+        bad = (got.cpu() != want).nonzero().flatten()[:3].tolist()
+        raise AssertionError(f"sw_gapless gather {what}: err {err}; hits "
+                             f"{bad}: kernel {got.cpu()[bad].tolist()} "
+                             f"plain {want[bad].tolist()}")
+
+
 def phase_kernels_cs() -> None:
     """The three new kernels against their plain versions, exact."""
     import torch
 
     from shrimp_tpu_torch.ops import sw_gapless, sw_vector
+    from shrimp_tpu_torch.ops.params import SWParams
+    from shrimp_tpu_torch.utils import gapless_cases
     cuda = torch.device("cuda", 0)
     cs, vect = _cs_params()
     rng = np.random.default_rng(20261017)
@@ -917,6 +953,18 @@ def phase_kernels_cs() -> None:
             if err:
                 raise AssertionError(f"sw_gapless R={R} s0={with_s0}: "
                                      f"err {err}")
+            n += 1
+    # the fused gather, both spaces (letter space also with a positive
+    # mismatch): R of 8, 37, 56 and 1,000, long reads (few hits of R 5,000,
+    # many of R 512), and launches of 0 and 1 hit
+    odd = SWParams(match=3, mismatch=1)
+    for R, N in ((8, 3000), (37, 3000), (56, 20000), (1000, 4096),
+                 (56, 0), (56, 1), (5000, 512), (512, 40000)):
+        for space_cs, params in ((False, SWParams.letter_space()),
+                                 (False, odd), (True, vect)):
+            args = gapless_cases.gather_case(rng, N, R, space_cs)
+            _check_gapless_gather(args, space_cs, params,
+                                  f"N={N} R={R} cs={space_cs} {params}")
             n += 1
     torch.cuda.synchronize()
     log(f"kernels: sw_gapless equal to its plain version in {n} cases")
@@ -1053,8 +1101,8 @@ def phase_goldens_cs() -> tuple[dict, dict]:
     log("goldens: colour-space launches "
         + json.dumps(read_launches(("sw_vector_cs", "sw_full_cs"))))
 
-    rec3 = Recorder(sw_gapless, "gapless_score_batch_cuda",
-                    lambda a: a[0].shape[0])
+    rec3 = Recorder(sw_gapless, "p1_gather_gapless_ls_cuda",
+                    lambda a: a[1].shape[0])
     reset_launches()
     with rec3:
         for prog, flags, reads, genome, gold in GAPLESS_GOLDENS:
@@ -1082,19 +1130,12 @@ def phase_goldens_cs() -> tuple[dict, dict]:
                       "sw_gapless": rec3.args}
 
 
-def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
-    """The colour-space path at 100 Mbp: map, count launches, check
-    quality, and check the first reads against the plain versions."""
-    import torch
-
+def size_cs_index(contigs: list):
+    """The colour-space index of the size-cs phases on the same contigs
+    (automatic list trim), its 8,192 SOLiD reads with their true starts."""
     from shrimp_tpu_torch import index as gindex
     from shrimp_tpu_torch import seeds as seedmod
-    from shrimp_tpu_torch.pipeline.options import MapperConfig
-    from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
-    from shrimp_tpu_torch.pipeline.mapper import Mapper
     from shrimp_tpu_torch.utils import synth
-
-    cs, _ = _cs_params()
     t0 = time.time()
     idx = gindex.build_index(contigs, seedmod.make_seed_set(None),
                              colour_space=True)
@@ -1105,6 +1146,20 @@ def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
                                        SIZE_CS_READS)
     log(f"size-cs: {idx.total_len} bp in {idx.num_contigs} contigs, "
         f"colour-space index {index_secs:.1f} s")
+    return idx, reads, truth, index_secs
+
+
+def phase_size_cs(device: dict, idx, reads, truth,
+                  index_secs: float) -> tuple[dict, dict, dict]:
+    """The colour-space path at 100 Mbp: map, count launches, check
+    quality, and check the first reads against the plain versions."""
+    import torch
+
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+
+    cs, _ = _cs_params()
 
     def cfg():
         return MapperConfig(colour_space=True, params=cs, qual_delta=33,
@@ -1164,13 +1219,9 @@ def phase_size_cs(device: dict, contigs: list) -> tuple[dict, dict, dict]:
 
 
 def time_kernels_cs(args: dict, reps: int = 20) -> dict:
-    """The colour-space and gapless kernels (CUDA events) against their
-    plain versions (host clock, CPU tensors) on recorded inputs; outputs
-    must agree.  Without a recorded gapless call the gapless kernel runs
-    on a random batch as large as the largest pass-1 launch."""
-    import torch
-
-    from shrimp_tpu_torch.ops import sw_full_cs, sw_gapless, sw_vector
+    """The colour-space kernels (CUDA events) against their plain versions
+    (host clock, CPU tensors) on recorded inputs; outputs must agree."""
+    from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
     out = {}
     a = args["sw_vector_cs"]
     got = sw_vector.p1_gather_score_cs_cuda(*a)
@@ -1207,36 +1258,193 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
         **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
                       bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
                       (s_got, o_got))}
-    a = args.get("sw_gapless")
-    if a is None:
-        cs, _ = _cs_params()
-        diag, reads, s0 = _gapless_case(
-            np.random.default_rng(5), int(args["sw_vector_cs"][2].shape[0]),
-            int(args["sw_vector_cs"][7].shape[2]))
-        a = (torch.from_numpy(diag).cuda(), torch.from_numpy(reads).cuda(),
-             cs, torch.from_numpy(s0).cuda())
-    got = sw_gapless.gapless_score_batch_cuda(*a)
-    ms = cuda_ms(lambda: sw_gapless.gapless_score_batch_cuda(*a), reps)
-    ca = _cpu(a)
-    plain_ms, want = host_ms(
-        lambda: sw_gapless.gapless_score_batch_plain(*ca))
-    diag, reads, _, s0 = a[:4]
-    cells = int(((diag.cpu() != GENOME_PAD)
-                 & (reads.cpu() != READ_PAD)).sum())
-    out["sw_gapless"] = {
-        "shape": {"hits": int(diag.shape[0]), "R": int(diag.shape[1]),
-                  "s0": s0 is not None},
-        "max_abs_err": max_abs_err(got, want), "ms": ms,
-        "plain_ms": plain_ms,
-        "device_ms": device_ms(
-            lambda: sw_gapless.gapless_score_batch_cuda(*a), reps),
-        **bound(_nbytes(diag, reads, s0, got),
-                OPS_PER_CELL["sw_gapless"] * cells)}
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{row}")
     return out
+
+
+def time_gapless(a: tuple, cs: bool, reps: int = 20) -> dict:
+    """The fused gapless pass 1 (CUDA events, and each call's device work
+    behind a spin kernel) against its plain version (host clock, CPU
+    tensors) on a recorded call; outputs must agree.  The bound counts
+    each hit's framing arrays in and its score out, the genome bytes of
+    its columns where both sides are in range (in colour space, where
+    column 0 is forced, the letter-plane byte in place of column 0's
+    colour byte), the read matrix and the primers once; 8 operations a
+    column in range."""
+    import torch
+
+    from shrimp_tpu_torch.ops import sw_gapless
+    kernel, plain = ((sw_gapless.p1_gather_gapless_cs_cuda,
+                      sw_gapless.p1_gather_gapless_cs_plain) if cs else
+                     (sw_gapless.p1_gather_gapless_ls_cuda,
+                      sw_gapless.p1_gather_gapless_ls_plain))
+    got = kernel(*a)
+    ms = cuda_ms(lambda: kernel(*a), reps)
+    dev_ms = device_ms(lambda: kernel(*a), reps)
+    ca = _cpu(a)
+    plain_ms, want = host_ms(lambda: plain(*ca))
+    if cs:
+        _, _, start, glen, r_left, rid, initbp, reads2 = ca[:8]
+        per_hit, extra = (start, glen, r_left, rid), (initbp,)
+        st = torch.zeros_like(rid)
+    else:
+        _, start, glen, r_left, rid, st, reads2 = ca[:7]
+        per_hit, extra = (start, glen, r_left, rid, st), ()
+    N, R = int(start.shape[0]), int(reads2.shape[2])
+    diag, rrow = sw_gapless._diagonals(ca[0], start, glen, r_left, rid, st,
+                                       reads2)
+    in_range = (diag != GENOME_PAD) & (rrow != READ_PAD)
+    cells = int(in_range.sum())
+    genome_bytes = cells
+    if cs and R:
+        forced = r_left == 0
+        genome_bytes += int((forced & (glen > 0)).sum()) \
+            - int((forced & in_range[:, 0]).sum())
+    row = {"shape": {"hits": N, "R": R, "reads": int(reads2.shape[0]),
+                     "colour_space": cs, "columns_in_range": cells,
+                     "genome_bytes": genome_bytes},
+           "max_abs_err": max_abs_err(got, want), "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
+           **bound(_nbytes(*per_hit, got, reads2, *extra) + genome_bytes,
+                   OPS_PER_CELL["sw_gapless"] * cells)}
+    if row["max_abs_err"]:
+        raise AssertionError(f"sw_gapless disagrees with its plain version: "
+                             f"{row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# gapless pass 1 at size (-U --local)
+def gapless_cfg(cs: bool, device_candidates: bool):
+    """What `gmapper -U --local` sets (gmapper.py, its -U and --local
+    options): gapless pass 1, anchor width 0, gap opens of -255, local
+    alignment; the colour-space scoring and PHRED+33 in colour space."""
+    from shrimp_tpu_torch.ops.params import SWParams
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    params = (_cs_params()[0] if cs else SWParams.letter_space()).with_(
+        a_gap_open=-255, b_gap_open=-255)
+    return MapperConfig(colour_space=cs, params=params,
+                        qual_delta=33 if cs else 64, gapless=True,
+                        anchor_width=0, global_alignment=False,
+                        device_candidates=device_candidates)
+
+
+class Pass1Split:
+    """Wall seconds a Mapper spends in its pass-1 dispatch (the host
+    framing, the copies in and the launch), apart from the rest of its
+    `pass1` stage."""
+
+    def __init__(self, mapper):
+        self.mapper, self.secs = mapper, 0.0
+
+    def __enter__(self):
+        orig = self.mapper._pass1_dispatch
+
+        def timed(*args, **kw):
+            t0 = time.time()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.secs += time.time() - t0
+
+        self.mapper._pass1_dispatch = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.mapper._pass1_dispatch
+
+
+# the gapless pass 1's wrapper by space, and the hit count of its arguments
+GAPLESS_WRAPPERS = {False: ("p1_gather_gapless_ls_cuda",
+                            lambda a: a[1].shape[0]),
+                    True: ("p1_gather_gapless_cs_cuda",
+                           lambda a: a[2].shape[0])}
+
+
+def phase_size_gapless(name: str, device: dict, idx, reads, truth, cs: bool,
+                       n_plain: int, dev_l3=None) -> tuple[dict, tuple, dict]:
+    """-U --local at 100 Mbp on a size phase's index and reads (device
+    candidates on `dev_l3`, the postings already resident, when given):
+    map every read; the `pass1` stage split into the dispatch (host
+    framing, copies in, launch), the wait for the scores and the finish;
+    launches, peak memory, top-hit quality, the SAM lines' digest; then
+    the first `n_plain` reads again through the plain versions, SAM lines
+    identical.  Returns the launches, the largest gapless call's
+    arguments and the stats."""
+    import hashlib
+
+    import torch
+
+    from shrimp_tpu_torch.ops import sw_gapless
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+
+    on_card = dev_l3 is not None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mapper = Mapper(idx, gapless_cfg(cs, on_card), device="cuda")
+    if on_card:
+        mapper._dev_l3 = dev_l3
+    torch.cuda.synchronize()
+    rec = Recorder(sw_gapless, *GAPLESS_WRAPPERS[cs])
+    split = Pass1Split(mapper)
+    reset_launches()
+    with rec, split:
+        t0 = time.time()
+        results = list(mapper.map_stream(iter(reads), SIZE_BATCH))
+        torch.cuda.synchronize()
+        map_secs = time.time() - t0
+    launches = read_launches(
+        ("sw_gapless", "sw_full_cs") if cs else
+        ("sw_gapless", "candidates_device", "sw_full") if on_card else
+        ("sw_gapless", "sw_full"))
+    peak = torch.cuda.max_memory_allocated()
+    n_done = len(results)
+    if n_done != len(reads):
+        raise AssertionError(f"{name}: mapped {n_done} of {len(reads)} reads")
+    if mapper.stats["device_l3_fallbacks"]:
+        raise AssertionError(f"{name}: batches fell back to host candidates")
+    stage = {k: round(v.secs, 3) for k, v in mapper.tel.stages.items()
+             if v.secs}
+    pass1 = mapper.tel.stages["pass1"].secs
+    wait = mapper.tel.f1.secs
+    lines = _sam_lines(mapper, results)
+    stats = {
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "genome_bp": int(idx.total_len), "reads": n_done,
+        "map_secs": round(map_secs, 3),
+        "reads_per_sec": round(n_done / map_secs, 1),
+        "windows_per_read": mapper.tel.f1.invocs / n_done,
+        **top_hit_quality(idx, results, truth),
+        "stage_secs": stage,
+        "pass1_split_secs": {"dispatch": round(split.secs, 3),
+                             "result_wait": round(wait, 3),
+                             "finish": round(pass1 - split.secs - wait, 3)},
+        "pass1_windows": mapper.stats["pass1_windows"],
+        "pass2_windows": mapper.stats["pass2_windows"],
+        "launches": launches,
+        "max_memory_allocated": int(peak),
+        "sam_lines": len(lines),
+        "sam_sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest(),
+    }
+    log(f"{name}: " + json.dumps(stats))
+
+    first = _sam_lines(mapper, results[:n_plain])
+    del mapper
+    plain = Mapper(idx, gapless_cfg(cs, on_card), device="cpu")
+    t0 = time.time()
+    again = _sam_lines(plain, plain.map_stream(iter(reads[:n_plain]),
+                                               SIZE_BATCH))
+    plain_secs = time.time() - t0
+    if again != first:
+        raise AssertionError(f"{name}: plain versions disagree at SAM line "
+                             f"{_first_difference(again, first)}")
+    log(f"{name}: first {n_plain} reads identical through the plain "
+        f"versions ({len(first)} SAM lines; plain map {plain_secs:.1f} s on "
+        "the host CPU)")
+    return launches, rec.args, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1427,10 +1635,11 @@ def phase_goldens_l3() -> dict:
 
 
 def phase_size_l3(device: dict, idx, reads, size_stats: dict,
-                  size_lines: list) -> tuple[dict, dict, dict]:
+                  size_lines: list) -> tuple[dict, dict, dict, object]:
     """The size phase's index and reads with device_candidates=True: SAM
     lines and windows/read equal to the host-candidate run's; then what
-    "auto" chooses on the first two batches."""
+    "auto" chooses on the first two batches.  Returns the launches, the
+    recorded largest K10 call, the stats, and the resident postings."""
     import torch
 
     from shrimp_tpu_torch.ops import candidates_device as cdv
@@ -1508,6 +1717,7 @@ def phase_size_l3(device: dict, idx, reads, size_stats: dict,
     log("size-l3: profile " + json.dumps(
         profile_map(mapper, reads[:SIZE_PROFILE_READS], SIZE_BATCH)))
     caps = {"a_cap": mapper._dev_l3_a_cap, "a2_cap": mapper._dev_l3_a2_cap}
+    dev_l3 = mapper._dev_l3
     del mapper
     torch.cuda.empty_cache()
 
@@ -1525,7 +1735,8 @@ def phase_size_l3(device: dict, idx, reads, size_stats: dict,
          "device_l3_fallbacks": auto.stats["device_l3_fallbacks"]}))
     del auto
     torch.cuda.empty_cache()
-    return launches, {"args": rec.args, "kw": {**rec.kw, **caps}}, stats
+    return (launches, {"args": rec.args, "kw": {**rec.kw, **caps}}, stats,
+            dev_l3)
 
 
 def k10_syncs(mapper, reads: list) -> dict:
@@ -1671,10 +1882,12 @@ def main() -> int:
     golden_times = time_kernels(golden_args)
     log("kernel times at golden shapes (" + device["smi"] + "): "
         + json.dumps(golden_times))
-    gapless_launches, golden_cs_args = phase_goldens_cs()
+    _, golden_cs_args = phase_goldens_cs()
     log("colour-space and gapless kernel times at golden shapes ("
         + device["smi"] + "): "
-        + json.dumps(time_kernels_cs(golden_cs_args)))
+        + json.dumps({**time_kernels_cs(golden_cs_args),
+                      "sw_gapless": time_gapless(golden_cs_args["sw_gapless"],
+                                                 cs=False)}))
     l3_golden_launches = phase_goldens_l3()
     contigs, gen_secs = size_contigs()
     idx, reads, truth, index_secs = size_index(contigs, gen_secs)
@@ -1684,21 +1897,36 @@ def main() -> int:
     log("kernel times at 100 Mbp main-path shapes (" + device["smi"]
         + "): " + json.dumps(size_times))
     del size_args
-    launches_l3, l3_rec, _ = phase_size_l3(device, idx, reads, size_stats,
-                                           size_lines)
+    launches_l3, l3_rec, _, dev_l3 = phase_size_l3(
+        device, idx, reads, size_stats, size_lines)
     size_times.update(time_kernels_l3(l3_rec, idx))
     log("candidates_device time at 100 Mbp main-path shapes ("
         + device["smi"] + "): "
         + json.dumps(size_times["candidates_device"]))
-    del l3_rec, idx, reads, size_lines
-    launches_cs, size_cs_args, _ = phase_size_cs(device, contigs)
+    del l3_rec, size_lines
+    launches_gl, gl_args, _ = phase_size_gapless(
+        "size-gapless", device, idx, reads, truth, False, SIZE_BATCH, dev_l3)
+    size_times["sw_gapless"] = time_gapless(gl_args, cs=False)
+    log("sw_gapless time at 100 Mbp size-gapless shapes (" + device["smi"]
+        + "): " + json.dumps(size_times["sw_gapless"]))
+    del gl_args, dev_l3, idx, reads
+    cs_idx, cs_reads, cs_truth, cs_index_secs = size_cs_index(contigs)
+    launches_cs, size_cs_args, _ = phase_size_cs(
+        device, cs_idx, cs_reads, cs_truth, cs_index_secs)
     size_times.update(time_kernels_cs(size_cs_args))
     log("colour-space kernel times at 100 Mbp main-path shapes ("
         + device["smi"] + "): "
-        + json.dumps({k: size_times[k] for k in size_cs_args}
-                     | {"sw_gapless": size_times["sw_gapless"]}))
+        + json.dumps({k: size_times[k] for k in size_cs_args}))
+    del size_cs_args
+    _, cs_gl_args, _ = phase_size_gapless(
+        "size-cs-gapless", device, cs_idx, cs_reads, cs_truth, True,
+        SIZE_CS_PLAIN)
+    log("sw_gapless time at 100 Mbp size-cs-gapless shapes ("
+        + device["smi"] + "): "
+        + json.dumps(time_gapless(cs_gl_args, cs=True)))
+    del cs_gl_args
     launches.update(launches_cs)
-    launches.update(gapless_launches)
+    launches["sw_gapless"] = launches_gl["sw_gapless"]
     launches["candidates_device"] = launches_l3["candidates_device"]
     log("candidates_device launches: goldens-l3 "
         f"{l3_golden_launches['candidates_device']}, size-l3 "

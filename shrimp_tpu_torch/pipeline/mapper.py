@@ -24,8 +24,9 @@ pass 2 through `ops.sw_full` or `ops.sw_full_cs`.  The vector pass 1
 gathers every window from planes that stay resident on the device
 (`DeviceIndex`), as the device candidates read a CSR index resident there
 (`ops.candidates_device.DeviceL3Index`); on a CUDA device the kernels
-run, on the CPU their plain versions.  The gapless diagonals are gathered
-on the host, as in the JAX package.
+run, on the CPU their plain versions.  The gapless pass 1 gathers its
+diagonals from the same resident planes (the JAX package gathers them on
+the host).
 
 Paired mapping is not ported yet.
 """
@@ -137,14 +138,15 @@ class FinalHit:
 class DeviceIndex:
     """The part of a GenomeIndex that lives on the device for pass 1, each
     plane int8 with a tail of PASS1_PLANE_PAD bytes of GENOME_PAD, and the
-    contig offsets as int64.  Letter space keeps the genome plane; colour
-    space keeps the forward||reverse-complement concatenations of the
-    colour and letter planes (`cs_cat`, `ls_cat`), so a reverse hit is a
-    start offset by the genome length.  Window starts are int64 end to
-    end, so one plane covers any genome size."""
+    contig offsets and lengths as int64.  Letter space keeps the genome
+    plane; colour space keeps the forward||reverse-complement
+    concatenations of the colour and letter planes (`cs_cat`, `ls_cat`),
+    so a reverse hit is a start offset by the genome length.  Window
+    starts are int64 end to end, so one plane covers any genome size."""
 
     plane: torch.Tensor | None
     contig_offsets: torch.Tensor
+    contig_lens: torch.Tensor
     cs_cat: torch.Tensor | None = None
     ls_cat: torch.Tensor | None = None
 
@@ -158,9 +160,11 @@ class DeviceIndex:
         device = torch.device(device)
         offs = torch.tensor(np.asarray(index.contig_offsets),
                             dtype=torch.int64, device=device)
+        lens = torch.tensor(np.asarray(index.contig_len), dtype=torch.int64,
+                            device=device)
         if not colour_space:
             return cls(plane=_padded_plane([index.genome], device),
-                       contig_offsets=offs)
+                       contig_offsets=offs, contig_lens=lens)
         if index.genome_cs is None:
             raise ValueError("colour-space mapping needs an index built "
                              "with colour_space=True")
@@ -168,7 +172,7 @@ class DeviceIndex:
             genome_rc = _reverse_complement_plane(index)
         if genome_cs_rc is None:
             genome_cs_rc = _colour_plane_rc(index, genome_rc)
-        return cls(plane=None, contig_offsets=offs,
+        return cls(plane=None, contig_offsets=offs, contig_lens=lens,
                    cs_cat=_padded_plane([index.genome_cs, genome_cs_rc],
                                         device),
                    ls_cat=_padded_plane([index.genome, genome_rc], device))
@@ -197,8 +201,7 @@ class Mapper:
         self.probs = ScoreProbs.from_scores(self.cfg.params, cs)
         # reverse-complement genome plane, same contig offsets
         self.genome_rc = _reverse_complement_plane(index)
-        # CS planes: colour translations of both letter strands
-        self.genome_cs = index.genome_cs
+        # the colour translation of the reverse-complement strand
         self.genome_cs_rc = (_colour_plane_rc(index, self.genome_rc)
                              if cs else None)
         # the CS vector filter scores colour mismatches as one crossover
@@ -290,7 +293,7 @@ class Mapper:
         dix = self.dev_index
         wl = self._to_device(w_len.astype(np.int32))
         rid_d = self._to_device(rid.astype(np.int32))
-        rb2 = self._to_device(self._reads2_matrix(entries, R))
+        rb2 = self._reads2_device(entries, R)
         if not self.cfg.colour_space:
             lo = (dix.contig_offsets[self._to_device(cn.astype(np.int64))]
                   + self._to_device(g_off_pos.astype(np.int64)))
@@ -314,80 +317,55 @@ class Mapper:
                         al, aw, w_len, R: int) -> torch.Tensor:
         """Pass-1 gapless scores: sw_gapless along the anchor diagonal
         (f1_run with gapless=true, f1-wrapper.h:118-120; sw-gapless.c:58).
+        Returns an int32 tensor on the mapper's device, still in flight on
+        a card.
 
         g_idx = g_off + anchor.x, r_idx = anchor.y in the hit's genome-strand
         frame (read_pass1_per_strand, mapping.c:1335-1348); CS applies the
-        reverse_hit framing and the forced-first-colour rule first.  The
-        diagonals are gathered on the host; the score runs on the mapper's
-        device (an int32 tensor, still in flight on a card)."""
-        coff = self.index.contig_offsets[cn]
-        clen = self.index.contig_len[cn]
-        rlen = np.array([entries[r].read_len for r in rid], np.int64)
-        wl = w_len.astype(np.int64)
+        reverse_hit framing first and reads the read as given (strand 0)
+        against the hit strand's half of the fw||rc planes.  The framing
+        is O(hits) NumPy on the host; the diagonals are gathered from the
+        resident planes on every device (in the kernel on a card, by the
+        plain version on the CPU), the CS forced first colour made there
+        too, so per batch only O(hits) arrays and the [B, 2, R] read matrix
+        cross to the device."""
+        dix = self.dev_index
+        g_off = g_off_pos.astype(np.int64)
         ax = ax.astype(np.int64)
         ay = ay.astype(np.int64)
-        cols = np.arange(R, dtype=np.int64)[None, :]
-
-        def diag_rows(plane, g_left):
-            gi = g_left[:, None] + cols
-            src = np.minimum(coff[:, None] + gi, len(plane) - 1)
-            out = plane[src]
-            return np.where(gi < clen[:, None], out,
-                            np.int8(sw_gapless.GENOME_PAD)).astype(np.int8)
-
-        def read_rows(istrand_arr, r_left):
-            rb = self._reads_matrix(entries, rid, istrand_arr, R)
-            rb = np.concatenate(
-                [rb, np.full((len(rid), 1), sw_gapless.READ_PAD, np.int8)],
-                axis=1)
-            ri = np.minimum(r_left[:, None] + cols, R)
-            return np.take_along_axis(rb, ri, axis=1)
-
-        p = self.vect_params
-        if not self.cfg.colour_space:
-            d0 = g_off_pos.astype(np.int64) + ax - ay
-            diag = diag_rows(self.index.genome, np.maximum(d0, 0))
-            rrow = read_rows(st, np.maximum(-d0, 0))
-            return sw_gapless.gapless_score_batch(
-                self._to_device(diag), self._to_device(rrow), p)
-
-        # ---- colour space: reverse_hit framing (mapping.c:272-281);
-        # CS input strand is always 0 (the read as given) ----
-        istrand = np.zeros(len(rid), np.int8)
-        rev = st != istrand
-        goff_f = np.where(rev, clen - g_off_pos - wl, g_off_pos)
-        al = al.astype(np.int64)
-        aw = aw.astype(np.int64)
-        ax_f = np.where(rev, -ax + (wl - 1) - (al - 1) - (aw - 1), ax)
-        ay_f = np.where(rev, -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
-        d0 = goff_f + ax_f - ay_f
+        cs = self.cfg.colour_space
+        half = np.zeros(len(rid), np.int64)
+        if cs:
+            # reverse_hit framing (mapping.c:272-281)
+            clen = self.index.contig_len[cn].astype(np.int64)
+            rlen = np.array([e.read_len for e in entries], np.int64)[rid]
+            wl = w_len.astype(np.int64)
+            al = al.astype(np.int64)
+            aw = aw.astype(np.int64)
+            rev = st != 0
+            g_off = np.where(rev, clen - g_off - wl, g_off)
+            ax = np.where(rev, -ax + (wl - 1) - (al - 1) - (aw - 1), ax)
+            ay = np.where(rev, -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
+            half[rev] = int(self.index.total_len)
+        d0 = g_off + ax - ay
         g_left = np.maximum(d0, 0)
-        r_left = np.maximum(-d0, 0)
-        diag_cs = np.where(rev[:, None],
-                           diag_rows(self.genome_cs_rc, g_left),
-                           diag_rows(self.genome_cs, g_left))
-        diag_ls = np.where(rev[:, None],
-                           diag_rows(self.genome_rc, g_left),
-                           diag_rows(self.index.genome, g_left))
-        rrow = read_rows(istrand, r_left)
-        # forced first colour when the diagonal starts at read position 0
-        # (sw-gapless.c:85-95): lstocs(genome_ls[g], initbp) vs read[0]
-        initbp = np.array([entries[r].initbp for r in rid], np.int8)
-        gl0 = diag_ls[:, 0]
-        real_colour = np.where((gl0 >= 0) & (gl0 <= 3), gl0 ^ initbp,
-                               np.int8(dna.BASE_N))
-        s0 = np.where(
-            r_left == 0,
-            np.where(real_colour == rrow[:, 0], np.int32(p.match), 0),
-            np.where(
-                (diag_cs[:, 0] != sw_gapless.GENOME_PAD)
-                & (rrow[:, 0] != sw_gapless.READ_PAD),
-                np.where(diag_cs[:, 0] == rrow[:, 0],
-                         np.int32(p.match), np.int32(p.mismatch)),
-                0)).astype(np.int32)
-        return sw_gapless.gapless_score_batch(
-            self._to_device(diag_cs.astype(np.int8)), self._to_device(rrow),
-            p, self._to_device(s0))
+        # per hit: contig, first genome column, plane half; first read
+        # column, read, strand
+        h64 = self._to_device(np.stack([cn.astype(np.int64), g_left, half]))
+        h32 = self._to_device(np.stack([np.maximum(-d0, 0), rid, st])
+                              .astype(np.int32))
+        start = dix.contig_offsets[h64[0]] + h64[1] + h64[2]
+        glen = dix.contig_lens[h64[0]] - h64[1]
+        rb2 = self._reads2_device(entries, R)
+        p = self.vect_params
+        if not cs:
+            return sw_gapless.p1_gather_gapless_ls(
+                dix.plane, start, glen, h32[0], h32[1], h32[2], rb2, p)
+        initbp = self._to_device(np.array([e.initbp for e in entries],
+                                          np.int8))
+        return sw_gapless.p1_gather_gapless_cs(
+            dix.cs_cat, dix.ls_cat, start, glen, h32[0], h32[1], initbp, rb2,
+            p)
 
     def map_batch(self, reads: list[tuple[str, str, str | None]],
                   options: list[ReadMappingOptions] | None = None
@@ -842,6 +820,11 @@ class Mapper:
             out[b, 0, :e.read_len] = e.read[0]
             out[b, 1, :e.read_len] = e.read[1]
         return out
+
+    def _reads2_device(self, entries, R) -> torch.Tensor:
+        """The batch's read matrix on the mapper's device, int8 [B, 2, R]:
+        what either pass-1 engine reads its rows from."""
+        return self._to_device(self._reads2_matrix(entries, R))
 
     def _reads_matrix(self, entries, rid, st, R) -> np.ndarray:
         """Per-window read rows int8 [N, R]: one vectorized take by

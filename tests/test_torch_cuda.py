@@ -31,6 +31,7 @@ from shrimp_tpu_torch.pipeline import candidates_batch as cb
 from shrimp_tpu_torch.pipeline.candidates import cs_read_ls4
 from shrimp_tpu_torch.pipeline.mapper import Mapper
 from shrimp_tpu_torch.pipeline.options import MapperConfig
+from shrimp_tpu_torch.utils import gapless_cases
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LS = SWParams.letter_space()
@@ -386,6 +387,60 @@ def test_sw_gapless_equals_plain(cuda_device, R, with_s0):
         *[a.to(cuda_device) for a in args], CS,
         None if s0 is None else s0.to(cuda_device))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(8, 2000), (37, 2000), (56, 8000),
+                                 (1000, 1024), (5000, 256), (512, 40000),
+                                 (56, 0), (56, 1)])
+@pytest.mark.parametrize("cs", [False, True], ids=["ls", "cs"])
+def test_gapless_gather_equals_plain(cuda_device, cs, R, N):
+    """The fused gather-and-score kernel against its plain version: both
+    strands, d0 < 0, contig ends (the last contig's too), the forced first
+    colour on N, mixed read lengths, R not a multiple of 4 or 16, long
+    reads, many hits on 512-column reads, and launches of 0 and 1 hit (no
+    launch for 0)."""
+    args = gapless_cases.gather_case(np.random.default_rng(R * 7 + N), N, R,
+                                     cs, B=48, L=60_000)
+    plain, kernel = ((tsg.p1_gather_gapless_cs_plain,
+                      tsg.p1_gather_gapless_cs) if cs else
+                     (tsg.p1_gather_gapless_ls_plain,
+                      tsg.p1_gather_gapless_ls))
+    params = CS_VECT if cs else LS
+    want = plain(*args, params)
+    before = tsg.LAUNCHES.value
+    got = kernel(*[a.to(cuda_device) for a in args], params)
+    assert got.device == cuda_device and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    assert tsg.LAUNCHES.value == before + (1 if N else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [False, True], ids=["ls", "cs"])
+def test_gapless_pass1_one_launch_per_call(cuda_device, cs):
+    """-U --local through the Mapper on the card: one launch of the fused
+    kernel per pass-1 call, the same SAM as on the CPU."""
+    idx = gindex.build_index(
+        list(fastx.iter_contigs(os.path.join(GOLDEN, "golden_genome.fa"))),
+        colour_space=cs)
+    params = (CS if cs else LS).with_(a_gap_open=-255, b_gap_open=-255)
+    recs = [(r.name, r.seq, r.qual) for r in fastx.iter_reads(os.path.join(
+        GOLDEN, "golden_reads_cs.fq" if cs else "mini_reads.fq"))]
+    lines = []
+    for dev in (cuda_device, "cpu"):
+        m = Mapper(idx, MapperConfig(colour_space=cs, params=params,
+                                     qual_delta=33 if cs else 64,
+                                     gapless=True, anchor_width=0,
+                                     global_alignment=False), device=dev)
+        calls = []
+        orig = m._gapless_scores
+        m._gapless_scores = lambda *a, **k: calls.append(1) or orig(*a, **k)
+        before = tsg.LAUNCHES.value
+        lines.append([rec.line() for e, hits in m.map_batch(recs)
+                      for rec in m.sam_records(e, hits)])
+        if dev == cuda_device:
+            assert calls and tsg.LAUNCHES.value - before == len(calls)
+    assert lines[0] == lines[1] and lines[0]
 
 
 @pytest.mark.cuda
