@@ -36,11 +36,27 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               plain version on random small indexes: dense and sparse
               region counts, collapse on and off, -H hashing, gapless,
               match mode 1, a list cut-off, an absolute threshold, cuts
-              at a_cap, a2_cap and h_cap, and reads too large for shared
-              memory (the global-memory tier); every output exactly equal
+              at a_cap, a2_cap and h_cap, reads too large for shared
+              memory (the global-memory tier), and 950-base reads; every
+              output exactly equal
   6. goldens-l3  golden_unpaired, med_ls and golden_cs mapped with
               device_candidates=True, byte-equal to the reference SAM
-  7. size     the main path at a real size: the port's generator
+  7. goldens-paired  through the gmapper CLI on the card
+              (utils/golden_cli.py): every paired golden of both spaces
+              (the four pair modes, the reference's pairing fixture,
+              match modes, --sam-r2, --all-contigs, --paired-options
+              rounds, the medium, draft-genome, messy and seed-quality
+              corpora), the three legacy SHRiMP-format goldens, the
+              unpaired goldens of the JAX suites that phases 4 and 6 do
+              not map, and golden_cs_bfast / golden_messy_cs /
+              golden_sqf_cs; byte-equal minus @PG (the unpaired and
+              two legacy ones in two worker processes meanwhile); the
+              paired runs' launches, and each kernel against its plain
+              version at their largest paired launch; then golden_paired
+              and golden_cs_opp-in with no band (-a -1: pass 2 at the
+              full band, W = G), SAM equal to the plain versions' and the
+              kernels held to them at those launches
+  8. size     the main path at a real size: the port's generator
               (utils/synth.py, the JAX bench's) at 100 Mbp (C. elegans
               class), 16,384 mutated 50 bp reads through Mapper.map_stream
               in batches of 2,048, the genome plane resident on the card,
@@ -50,7 +66,7 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               run of 8,192 reads under torch.profiler (device busy and
               idle share); then each kernel timed against its plain
               version on the inputs of the main path's largest launch
-  8. size-l3  the same index and reads with device_candidates=True: the
+  9. size-l3  the same index and reads with device_candidates=True: the
               CSR postings resident on the card, K10 for every batch; SAM
               lines and windows/read equal to the size run's; stage split,
               ship, peak memory, capacity growth, fallbacks, K10's host
@@ -58,20 +74,30 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               the same profiled warm run; what "auto"
               chooses on the first two batches; K10 timed against its
               plain version on the largest call
-  9. size-gapless  the same index and reads as `gmapper -U --local`
+ 10. size-gapless  the same index and reads as `gmapper -U --local`
               maps them (gapless pass 1, anchor width 0, local), device
               candidates on the postings size-l3 made resident; the pass-1
               stage split into dispatch, wait and finish, launches, peak
               memory, quality, the SAM digest; the first 2,048 reads again
               through the plain versions; the gapless kernel timed against
               its plain version on the largest call
- 10. size-cs  the colour-space path on the same contigs: a colour-space
+ 11. size-paired  paired mapping on the same index: 4,096 opp-in pairs
+              of the grid bench's generator (synth.make_pairs, seed 17,
+              50 bp mates, insert 150-450), PairedConfig(opp-in, 50, 600),
+              host candidates, PairedMapper.map_pair_stream in batches of
+              1,024 pairs after one warm batch, twice (SAM digests equal);
+              reads/s, stage seconds (summed over the stream's two worker
+              threads), pairs matched and top-pair recall (the grid
+              bench's), launches, peak memory, a profiled warm run of
+              2,048 pairs; K1 and K3+K4 timed against their plain versions
+              at the largest paired launch
+ 12. size-cs  the colour-space path on the same contigs: a colour-space
               index, 8,192 SOLiD reads (synth.make_cs_reads, seed 23,
               50 bp) in batches of 2,048, the fw||rc colour and letter
               planes resident on the card, host candidates; launch counts;
               the first 1,024 reads again through the plain versions;
               each colour-space kernel timed against its plain version
- 11. size-cs-gapless  that index and those reads with -U --local, host
+ 13. size-cs-gapless  that index and those reads with -U --local, host
               candidates: what size-gapless reports, the first 1,024
               reads through the plain versions, the gapless kernel timed
               on the largest call
@@ -97,6 +123,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -114,6 +141,11 @@ SIZE_CS_READS = 8_192
 SIZE_CS_PLAIN = 1_024
 # reads of the warm run under torch.profiler in the size phases
 SIZE_PROFILE_READS = 8_192
+# the size-paired phase: opp-in pairs of the grid bench (seed 17), in
+# batches of 1,024 pairs; pairs of its profiled warm run
+SIZE_PAIRS = 4_096
+SIZE_PAIR_BATCH = 1_024
+SIZE_PROFILE_PAIRS = 2_048
 
 KERNELS = {
     "sw_vector": {"source": "shrimp_tpu_torch/csrc/sw_vector.cu",
@@ -282,17 +314,19 @@ def _band_bound(name, read_rows, bxmin, bxmax, ins, outs) -> dict:
 
 
 def profile_map(mapper, reads: list, batch: int) -> dict:
-    """One warm map_stream of `reads` under torch.profiler (CPU and CUDA
-    activities): wall seconds, device busy time (every kernel and copy on
-    the card), the idle share, and the device time by kernel name."""
+    """One warm map_stream of `reads` (a PairedMapper: map_pair_stream of
+    read pairs) under torch.profiler (CPU and CUDA activities): wall
+    seconds, device busy time (every kernel and copy on the card), the
+    idle share, and the device time by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    stream = getattr(mapper, "map_pair_stream", mapper.map_stream)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for _ in mapper.map_stream(iter(reads), batch):
+        for _ in stream(iter(reads), batch):
             pass
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -585,6 +619,12 @@ def _sam_lines(mapper, results) -> list[str]:
             for rec in mapper.sam_records(re_e, hits)]
 
 
+def sam_digest(lines: list[str]) -> dict:
+    """The SAM lines' count and the sha256 of their text."""
+    return {"sam_lines": len(lines), "sam_sha256": hashlib.sha256(
+        "\n".join(lines).encode()).hexdigest()}
+
+
 def phase_goldens() -> dict:
     """The three letter-space goldens through the kernels, byte-exact."""
     import torch
@@ -743,8 +783,9 @@ def phase_size(device: dict, idx, reads, truth,
         "launches": launches,
         "max_memory_allocated": int(peak),
     }
-    log("size: " + json.dumps(stats))
     lines = _sam_lines(mapper, results)
+    stats.update(sam_digest(lines))
+    log("size: " + json.dumps(stats))
 
     # the first batch again through the plain versions (CPU tensors)
     first = _sam_lines(mapper, results[:SIZE_BATCH])
@@ -1130,6 +1171,275 @@ def phase_goldens_cs() -> tuple[dict, dict]:
                       "sw_gapless": rec3.args}
 
 
+# ---------------------------------------------------------------------------
+# paired, legacy output and the JAX suites' other goldens
+def _paired_recorders():
+    """Recorders of the four kernels a paired run launches (pass 1 and
+    pass 2, both spaces), largest call by rows."""
+    from shrimp_tpu_torch.ops import sw_full, sw_full_cs, sw_vector
+    return {"sw_vector": Recorder(sw_vector, "p1_gather_score_ls_cuda",
+                                  lambda a: a[1].shape[0]),
+            "sw_vector_cs": Recorder(sw_vector, "p1_gather_score_cs_cuda",
+                                     lambda a: a[2].shape[0]),
+            "sw_full": Recorder(sw_full, "sw_full_and_traceback_packed_cuda",
+                                lambda a: a[0].shape[0]),
+            "sw_full_cs": Recorder(sw_full_cs,
+                                   "sw_full_cs_and_traceback_packed_cuda",
+                                   lambda a: a[0].shape[0])}
+
+
+def _run_goldens(cases: dict, tmpdir: str) -> None:
+    """Each case through the gmapper CLI on the card, held to its golden
+    (utils/golden_cli.py: minus @PG, legacy output byte for byte)."""
+    from shrimp_tpu_torch.utils import golden_cli
+    for name, case in cases.items():
+        t0 = time.time()
+        rc, out, err = golden_cli.run_case(case, tmpdir)
+        if rc != 0:
+            raise AssertionError(f"{name}: gmapper rc {rc}\n" + err[-2000:])
+        if "PyTorch port on cuda" not in err:
+            raise AssertionError(f"{name}: the CLI did not map on the card")
+        got = golden_cli.compared(out, case[4])
+        want = golden_cli.expected(case[4])
+        if got != want:
+            raise AssertionError(
+                f"{name}: output differs from {case[4]} at "
+                f"{golden_cli.first_difference(got, want)} "
+                f"({len(got)} vs {len(want)})")
+        log(f"goldens-paired: {name} byte-equal through the CLI "
+            f"({' '.join(case[1][:8])}; {time.time() - t0:.1f} s)")
+
+
+def phase_goldens_paired() -> dict:
+    """The paired goldens of both spaces, the legacy-format goldens, the
+    unpaired goldens of the JAX suites that the earlier phases do not run,
+    and the colour-space goldens that had run only on the CPU, through the
+    CLI on the card.  The paired runs' largest pass-1 and pass-2 launches
+    are held to the plain versions; so are those of the paired goldens
+    mapped with -a -1 (no band: the packed kernels over the full band at
+    W = G, where the JAX package runs K5 / K9), whose SAM must also equal
+    a run of the plain versions.  Returns the kernel rows."""
+    import tempfile
+
+    import torch
+
+    from shrimp_tpu_torch.utils import golden_cli
+    t_all = time.time()
+    # the unpaired and letter/colour-space legacy goldens run in two worker
+    # processes on the same card meanwhile (each CLI run is mostly host
+    # work: index build, read intake)
+    rest = [k for k in (*golden_cli.LEGACY, *golden_cli.UNPAIRED,
+                        *golden_cli.UNPAIRED_CS)
+            if k != "golden_legacy_paired"]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--golden-worker",
+         *rest[w::2]], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for w in range(2)]
+    recs = _paired_recorders()
+    reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as tmpdir, \
+                recs["sw_vector"], recs["sw_vector_cs"], recs["sw_full"], \
+                recs["sw_full_cs"]:
+            _run_goldens({**golden_cli.PAIRED_LS, **golden_cli.PAIRED_CS,
+                          "golden_legacy_paired":
+                              golden_cli.LEGACY["golden_legacy_paired"]},
+                         tmpdir)
+        torch.cuda.synchronize()
+        launches = read_launches(("sw_vector", "sw_vector_cs", "sw_full",
+                                  "sw_full_cs"))
+        log("goldens-paired: paired launches " + json.dumps(launches))
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    finally:
+        outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        sys.stdout.write(out)
+        if p.returncode != 0:
+            raise AssertionError(f"goldens-paired: worker rc {p.returncode}")
+    rows = {"paired": {**time_kernels(
+                {k: recs[k].args for k in ("sw_vector", "sw_full")}, 5),
+            **time_kernels_cs(
+                {k: recs[k].args for k in ("sw_vector_cs", "sw_full_cs")},
+                5)}}
+    rows["full_band"] = phase_full_band_pairs()
+    log("goldens-paired: kernels against their plain versions at the "
+        "largest paired launches: " + json.dumps(rows))
+    log(f"goldens-paired: {time.time() - t_all:.1f} s")
+    return rows
+
+
+def phase_full_band_pairs() -> dict:
+    """golden_paired and golden_cs_opp-in with no band (anchor width -1):
+    every pass-2 launch at the full band, W = G.  The SAM of the card run
+    equals that of the plain versions; the largest launches are held to
+    the plain versions."""
+    import torch
+
+    from shrimp_tpu_torch import index as gindex
+    from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.pipeline.paired import PairedMapper
+    cs_params, _ = _cs_params()
+    out = {}
+    for cs, reads in ((False, "golden_pairs.fq"),
+                      (True, "pairs_cs_opp-in.fq")):
+        idx = gindex.build_index(list(fastx.iter_contigs(
+            os.path.join(GOLDEN, "golden_genome.fa"))), colour_space=cs)
+        recs = [(r.name, r.seq, r.qual) for r in
+                fastx.iter_reads(os.path.join(GOLDEN, reads))]
+        pairs = list(zip(recs[0::2], recs[1::2]))
+
+        def cfg():
+            if cs:
+                return MapperConfig(colour_space=True, params=cs_params,
+                                    qual_delta=33, anchor_width=-1)
+            return MapperConfig(qual_delta=64, anchor_width=-1)
+
+        rec = _paired_recorders()
+        names = ("sw_vector_cs", "sw_full_cs") if cs else ("sw_vector",
+                                                          "sw_full")
+        with rec[names[0]], rec[names[1]]:
+            m = PairedMapper(idx, cfg(), device="cuda")
+            lines = [r.line() for pr in m.map_pair_batch(pairs)
+                     for r in m.sam_records_pair(pr)]
+            torch.cuda.synchronize()
+        plain = PairedMapper(idx, cfg(), device="cpu")
+        want = [r.line() for pr in plain.map_pair_batch(pairs)
+                for r in plain.sam_records_pair(pr)]
+        if lines != want:
+            raise AssertionError(
+                f"full band ({reads}): card and plain SAM differ at line "
+                f"{_first_difference(lines, want)}")
+        a = rec[names[1]].args
+        G, W = int(a[0].shape[1]), int(a[9] if cs else a[7])
+        if W != G:
+            raise AssertionError(f"full band ({reads}): W {W}, G {G}")
+        args = {n: rec[n].args for n in names}
+        row = (time_kernels_cs(args, 5) if cs else time_kernels(args, 5))
+        out["cs" if cs else "ls"] = {"sam_lines": len(lines), **row}
+        log(f"goldens-paired: {reads} with -a -1, {len(lines)} SAM lines "
+            f"equal to the plain versions', pass 2 at W = G = {G}")
+    return out
+
+
+def phase_size_paired(device: dict, idx) -> tuple[dict, dict]:
+    """Paired mapping at 100 Mbp: 4,096 opp-in pairs of the grid bench's
+    generator (make_pairs, seed 17; 50 bp mates, insert 150-450) with
+    PairedConfig(opp-in, 50, 600), host candidates, map_pair_stream in
+    batches of 1,024 pairs after one warm batch; twice, the SAM equal;
+    quality as the grid bench counts it; a profiled warm run.  Returns
+    the stats and the largest K1 and K3+K4 launches."""
+    import torch
+
+    from shrimp_tpu_torch.ops import sw_full, sw_vector
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.pipeline.paired import (PAIR_OPP_IN, PairedConfig,
+                                                  PairedMapper)
+    from shrimp_tpu_torch.utils import synth, telemetry
+
+    t0 = time.time()
+    pairs, truth = synth.make_pairs(idx, np.random.default_rng(17),
+                                    SIZE_PAIRS)
+    gen_secs = time.time() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pm = PairedMapper(idx, MapperConfig(qual_delta=64,
+                                        device_candidates=False),
+                      PairedConfig(pair_mode=PAIR_OPP_IN, min_insert_size=50,
+                                   max_insert_size=600), device="cuda")
+    for _ in pm.map_pair_stream(iter(pairs[:SIZE_PAIR_BATCH]),
+                                batch_size=SIZE_PAIR_BATCH):
+        pass                                           # warm batch
+    torch.cuda.synchronize()
+    pm.tel = telemetry.Telemetry(lock=pm._stats_lock)
+    coffs = idx.contig_offsets
+
+    def run():
+        t0 = time.time()
+        res = list(pm.map_pair_stream(iter(pairs),
+                                      batch_size=SIZE_PAIR_BATCH))
+        torch.cuda.synchronize()
+        return res, time.time() - t0
+
+    rec1 = Recorder(sw_vector, "p1_gather_score_ls_cuda",
+                    lambda a: a[1].shape[0])
+    rec2 = Recorder(sw_full, "sw_full_and_traceback_packed_cuda",
+                    lambda a: a[0].shape[0])
+    reset_launches()
+    with rec1, rec2:
+        results, map_secs = run()
+    launches = read_launches(("sw_vector", "sw_full"))
+    peak = torch.cuda.max_memory_allocated()
+    tel = pm.tel
+    if len(results) != SIZE_PAIRS:
+        raise AssertionError(f"mapped {len(results)} of {SIZE_PAIRS} pairs")
+    # benchmarks/bench_grid.py's quality: the top mate-1 placement (best
+    # paired hit, else the half-paired mate-1 hit) within 8 bp of truth
+    n_pairs_matched = n_correct = 0
+    for pi, pr in enumerate(results):
+        fh0 = None
+        if pr.paired_hits:
+            n_pairs_matched += 1
+            fh0 = pr.paired_hits[0][0]
+        else:
+            fh0 = next((fh for side, fh in pr.unpaired_hits if side == 0),
+                       None)
+        if fh0 is not None:
+            gs0 = fh0.g_off + fh0.genome_start
+            if fh0.gen_st == 0:
+                gpos = int(coffs[fh0.cn]) + gs0
+            else:
+                clen = int(idx.contig_len[fh0.cn])
+                gpos = int(coffs[fh0.cn]) + (clen - gs0) - fh0.gmapped
+            n_correct += abs(gpos - truth[pi]) <= 8
+
+    def digest(res):
+        return sam_digest([r.line() for pr in res
+                           for r in pm.sam_records_pair(pr)])
+
+    sam1 = digest(results)
+    del results
+    results2, map_secs2 = run()
+    sam2 = digest(results2)
+    del results2
+    if sam1 != sam2:
+        raise AssertionError(f"size-paired: two runs differ: {sam1} {sam2}")
+    reads_n = 2 * SIZE_PAIRS
+    stage_names = ("readparse", "anchor_list", "hit_list", "pass1",
+                   "get_vector_hits", "pass2", "pair_up", "hp_pass1",
+                   "hp_pass2", "paired_mqv")
+    stats = {
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "genome_bp": int(idx.total_len), "pairs": SIZE_PAIRS,
+        "reads": reads_n, "pairs_gen_secs": round(gen_secs, 3),
+        "map_secs": round(map_secs, 3),
+        "reads_per_sec": round(reads_n / map_secs, 1),
+        "map_secs_run2": round(map_secs2, 3),
+        "reads_per_sec_run2": round(reads_n / map_secs2, 1),
+        "windows_per_read": tel.f1.invocs / reads_n,
+        # stage seconds add up over the stream's two worker threads: the
+        # pass-2 share is of their sum
+        "pass2_share": round(
+            sum(tel.stages[k].secs for k in ("pass2", "hp_pass2")
+                if k in tel.stages)
+            / max(sum(t.secs for t in tel.stages.values()), 1e-9), 4),
+        "pairs_matched_frac": round(n_pairs_matched / SIZE_PAIRS, 4),
+        "recall_top_pair": round(n_correct / SIZE_PAIRS, 4),
+        "stage_secs": {k: round(tel.stages[k].secs, 3) for k in stage_names
+                       if k in tel.stages and tel.stages[k].secs},
+        "launches": launches,
+        "max_memory_allocated": int(peak),
+        **sam1, "sam_equal_run2": sam1 == sam2,
+    }
+    stats["profile"] = profile_map(pm, pairs[:SIZE_PROFILE_PAIRS],
+                                   SIZE_PAIR_BATCH)
+    log("size-paired: " + json.dumps(stats))
+    return stats, {"sw_vector": rec1.args, "sw_full": rec2.args}
+
+
 def size_cs_index(contigs: list):
     """The colour-space index of the size-cs phases on the same contigs
     (automatic list trim), its 8,192 SOLiD reads with their true starts."""
@@ -1199,6 +1509,7 @@ def phase_size_cs(device: dict, idx, reads, truth,
         "pass2_windows": mapper.stats["pass2_windows"],
         "launches": launches,
         "max_memory_allocated": int(peak),
+        **sam_digest(_sam_lines(mapper, results)),
     }
     log("size-cs: " + json.dumps(stats))
 
@@ -1374,8 +1685,6 @@ def phase_size_gapless(name: str, device: dict, idx, reads, truth, cs: bool,
     the first `n_plain` reads again through the plain versions, SAM lines
     identical.  Returns the launches, the largest gapless call's
     arguments and the stats."""
-    import hashlib
-
     import torch
 
     from shrimp_tpu_torch.ops import sw_gapless
@@ -1426,8 +1735,7 @@ def phase_size_gapless(name: str, device: dict, idx, reads, truth, cs: bool,
         "pass2_windows": mapper.stats["pass2_windows"],
         "launches": launches,
         "max_memory_allocated": int(peak),
-        "sam_lines": len(lines),
-        "sam_sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest(),
+        **sam_digest(lines),
     }
     log(f"{name}: " + json.dumps(stats))
 
@@ -1552,6 +1860,9 @@ L3_CASES = {
     "h_cap cut": ({"seed": 19}, (0,), {"h_cap": 40}),
     "global tier": ({"seed": 41, "repeat": 100, "contig_len": 200_000,
                      "n_reads": 64}, (0, 1), {"use_regions": True}),
+    # 950-base reads: the rows' offsets alone take 34 KB of shared memory
+    "long reads": ({"seed": 43, "read_len": 950, "n_reads": 32}, (0, 1),
+                   {"use_regions": True}),
 }
 # the cases cut at a capacity, which must report an overflow
 L3_CUT = ("forced overflow", "a2_cap cut", "h_cap cut")
@@ -1864,6 +2175,20 @@ def time_kernels_l3(rec: dict, idx, reps: int = 5) -> dict:
     return out
 
 
+def golden_worker(names: list[str]) -> int:
+    """`chip_smoke.py --golden-worker NAME...`: the named goldens of
+    utils/golden_cli.py through the CLI on the card (phase_goldens_paired
+    starts two of these)."""
+    import tempfile
+
+    from shrimp_tpu_torch.utils import golden_cli
+    cases = {**golden_cli.LEGACY, **golden_cli.UNPAIRED,
+             **golden_cli.UNPAIRED_CS}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        _run_goldens({n: cases[n] for n in names}, tmpdir)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1871,6 +2196,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import shrimp_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--golden-worker"]:
+        return golden_worker(sys.argv[2:])
 
     t_all = time.time()
     device = phase_device()
@@ -1889,6 +2216,7 @@ def main() -> int:
                       "sw_gapless": time_gapless(golden_cs_args["sw_gapless"],
                                                  cs=False)}))
     l3_golden_launches = phase_goldens_l3()
+    phase_goldens_paired()
     contigs, gen_secs = size_contigs()
     idx, reads, truth, index_secs = size_index(contigs, gen_secs)
     launches, size_args, size_stats, size_lines = phase_size(
@@ -1909,7 +2237,11 @@ def main() -> int:
     size_times["sw_gapless"] = time_gapless(gl_args, cs=False)
     log("sw_gapless time at 100 Mbp size-gapless shapes (" + device["smi"]
         + "): " + json.dumps(size_times["sw_gapless"]))
-    del gl_args, dev_l3, idx, reads
+    del gl_args, dev_l3, reads
+    _, paired_args = phase_size_paired(device, idx)
+    log("kernel times at 100 Mbp size-paired shapes (" + device["smi"]
+        + "): " + json.dumps(time_kernels(paired_args)))
+    del paired_args, idx
     cs_idx, cs_reads, cs_truth, cs_index_secs = size_cs_index(contigs)
     launches_cs, size_cs_args, _ = phase_size_cs(
         device, cs_idx, cs_reads, cs_truth, cs_index_secs)

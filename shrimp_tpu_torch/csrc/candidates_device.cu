@@ -946,9 +946,12 @@ size_t keep_smem(int Ktot, int cap) {
 }
 
 // Opt `fn` into `bytes` of dynamic shared memory; `*done` remembers the
-// most it was opted into on this device, so a call repeats nothing.
+// most it was opted into on this device, so a call repeats nothing.  The
+// opt-in is needed whenever the dynamic and the static shared memory
+// together pass 48 KB, which for the kernels' static tables (17 KB) begins
+// well below 48 KB of dynamic: so it is made for any size.
 cudaError_t set_smem(const void* fn, size_t bytes, size_t* done) {
-  if (bytes <= 48 * 1024 || bytes <= *done) return cudaSuccess;
+  if (bytes <= *done) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) *done = bytes;

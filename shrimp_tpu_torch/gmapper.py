@@ -1,24 +1,28 @@
 """gmapper-compatible command line for the PyTorch / CUDA port.
 
-The unpaired path of `shrimp_tpu.gmapper.main` (`gmapper/gmapper.c:main`),
+The counterpart of `shrimp_tpu.gmapper.main` (`gmapper/gmapper.c:main`),
 letter space and colour space (`--mode cs`, or the program name
-`gmapper-cs`), gapped or gapless (`-U`, `-M mirna`): option parsing for
-the scoring, crossover, threshold, seed, window, strand, output and
-read-intake flags, the settings banner, the SAM header, read intake with
-trimming and filtering, the pipelined `Mapper.map_stream` loop, and the
-closing statistics block.  The option tables, usage text and logging are
-the JAX package's own.
+`gmapper-cs`), gapped or gapless (`-U`, `-M mirna`), unpaired or paired
+(`-p`, `-1`/`-2`, `--paired-options`, the half-paired fallback):
+option parsing for the scoring, crossover, threshold, seed, window,
+strand, pairing, output and read-intake flags, the `--unpaired-options`
+rounds, the settings banner, the SAM header or the legacy SHRiMP format
+(`--shrimp-format`, `-R`), read intake with trimming and filtering, the
+pipelined `Mapper.map_stream` / `PairedMapper.map_pair_stream` loops, and
+the closing statistics block with the insert-size histogram (`-X`).  The
+option tables, usage text and logging are the JAX package's own.
 
 Mapping runs on the first CUDA device (the kernels).  It runs on the CPU
 (their plain PyTorch versions) only when the caller passes `device="cpu"`
 or the environment sets `SHRIMP_TPU_TORCH_DEVICE=cpu`; without a CUDA
 device and without such a request it exits with rc 1.  Flags of paths not
-yet ported (paired, index save/load, genome shards, legacy output) exit
+yet ported (index save/load, genome shards, the pretty print `-P`) exit
 with rc 1.
 
 Usage:
     python -m shrimp_tpu_torch.gmapper [options] reads.fq genome.fa
     python -m shrimp_tpu_torch.gmapper --mode cs [options] reads.csfq genome.fa
+    python -m shrimp_tpu_torch.gmapper -p opp-in -I 0,500 pairs.fq genome.fa
 """
 
 from __future__ import annotations
@@ -255,19 +259,11 @@ def log(msg: str) -> None:
 
 # flag -> the path it belongs to; each exits with rc 1 for now
 _NOT_PORTED = {
-    **{o: "paired mapping" for o in (
-        "-p", "--pair-mode", "-I", "--isize", "--insert-size-dist", "-1",
-        "--upstream", "-2", "--downstream", "--paired-options",
-        "--half-paired", "--no-half-paired", "--no-improper-mappings",
-        "--sam-r2", "--trim-first", "--trim-second", "-X",
-        "--isize-histogram")},
     **{o: "index save/load" for o in (
         "-S", "--save", "-L", "--load", "--save-mmap", "--load-mmap",
         "--index-format")},
     **{o: "multi-device mapping" for o in ("--genome-shards", "--devices")},
-    **{o: "legacy output" for o in (
-        "--shrimp-format", "-P", "--pretty", "-R", "--print-reads")},
-    "--unpaired-options": "multi-round option sets",
+    **{o: "pretty print" for o in ("-P", "--pretty")},
 }
 
 
@@ -299,11 +295,16 @@ def main(argv: list[str] | None = None,
     from shrimp_tpu_torch import index as gindex
     from shrimp_tpu_torch import seeds as seedmod
     from shrimp_tpu_torch.io import fastx
+    from shrimp_tpu_torch.io import legacy as legacy_mod
     from shrimp_tpu_torch.ops.params import ScoreProbs, SWParams
     from shrimp_tpu_torch.pipeline import candidates_batch as cb
-    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.pipeline.options import (
+        MapperConfig, ReadMappingOptions, parse_read_mapping_options,
+        parse_readpair_mapping_options)
     from shrimp_tpu_torch.utils import telemetry
     from shrimp_tpu_torch.pipeline.mapper import Mapper
+    from shrimp_tpu_torch.pipeline.paired import (PAIR_MODE_NAMES,
+                                                  PairedConfig, PairedMapper)
 
     colour = mode == "cs"
     cfg = MapperConfig(colour_space=colour,
@@ -315,18 +316,24 @@ def main(argv: list[str] | None = None,
     seed_specs: list[str] | None = None
     seed_weight = 0
     use_hashing = False
+    pair_mode = 0
+    isize_min, isize_max = 0, 1000
+    insert_size_mean, insert_size_stddev = 200.0, 100.0
     fastq = None
     threads = 1
     chunk = 1000
     batch_size = 2048
+    up_file = down_file = None
     un_file = al_file = None
     progress = 100000
     thresholds = {"r": 55.0, "v": 47.0 if colour else 50.0, "h": 50.0}
     vec_threshold_set = False
     mirna = False
+    x_isize_hist = False
     y_proj_hist = False
     d_stats = False
     trim_front = trim_end = 0
+    trim_first = trim_second = True
     min_avg_qv = 10              # DEF min_avg_qv (gmapper.h:81)
     no_qv_check = False
     no_autodetect = False
@@ -334,7 +341,12 @@ def main(argv: list[str] | None = None,
     read_group = None
     sam_header_file = None
     sam_header_sections = {}
+    unpaired_option_sets = []
+    paired_option_sets = []
     match_mode_set = False
+    shrimp_format = False
+    sam_r2 = False
+    rflag = False
     trim_illumina = False
     no_hash_filter_calls = False
     auto_trim_off = False
@@ -350,14 +362,17 @@ def main(argv: list[str] | None = None,
 
     def _usage_state():
         return {
-            "gapless": cfg.gapless, "global": cfg.global_alignment,
+            "pair_mode": pair_mode, "gapless": cfg.gapless,
+            "global": cfg.global_alignment,
             "trim_illumina": trim_illumina, "bfast": cfg.bfast,
             "Cflag": cfg.strand_mask == 2, "Fflag": cfg.strand_mask == 1,
-            "Qflag": True, "Tflag": cfg.rev_tiebreak, "Yflag": y_proj_hist,
+            "Eflag": not shrimp_format, "Qflag": True, "Rflag": rflag,
+            "Tflag": cfg.rev_tiebreak, "Xflag": x_isize_hist,
+            "Yflag": y_proj_hist,
             "hash_filter_calls": not no_hash_filter_calls,
             "Hflag": use_hashing, "Dflag": d_stats,
             "Vflag": not auto_trim_off, "sam_unaligned": cfg.sam_unaligned,
-            "progress": progress,
+            "half_paired": cfg.half_paired, "progress": progress,
         }
 
     for o, a in opts:
@@ -425,6 +440,17 @@ def main(argv: list[str] | None = None,
         elif o in ("-K", "--thread-chunk"):
             chunk = int(a)
             batch_size = max(batch_size, chunk)
+        elif o in ("-p", "--pair-mode"):
+            if a not in PAIR_MODE_NAMES:
+                log(f"error: unknown pair mode {a!r}")
+                return 1
+            pair_mode = PAIR_MODE_NAMES.index(a)
+        elif o in ("-I", "--isize"):
+            lo, hi = a.split(",")
+            isize_min, isize_max = int(lo), int(hi)
+        elif o == "--insert-size-dist":
+            mu, sd = a.split(",")
+            insert_size_mean, insert_size_stddev = float(mu), float(sd)
         elif o in ("-C", "--negative"):
             if cfg.strand_mask == 1:   # -F already given (gmapper.c:1977)
                 log("error: -C and -F are mutually exclusive")
@@ -443,6 +469,12 @@ def main(argv: list[str] | None = None,
             score_assignments.append(("a_gap_open", -255))
             score_assignments.append(("b_gap_open", -255))
             no_hash_filter_calls = True
+        elif o in ("-E", "--sam"):
+            shrimp_format = False
+        elif o == "--shrimp-format":
+            shrimp_format = True
+        elif o in ("-R", "--print-reads"):
+            rflag = True
         elif o in ("-B", "--bfast"):
             if not colour:
                 log("error: --bfast is a colour-space option")
@@ -454,6 +486,27 @@ def main(argv: list[str] | None = None,
                 log("error: --trim-illumina is a letter-space option")
                 return 1
             trim_illumina = True
+        elif o == "--unpaired-options":
+            nip, _, rest = a.partition(";")
+            if nip not in ("0", "1"):
+                log(f"error: invalid unpaired mapping options: [{a}]")
+                return 1
+            if paired_option_sets:
+                cfg.half_paired = True    # gmapper.c:2207
+            unpaired_option_sets.append(
+                parse_read_mapping_options(rest, is_paired=False))
+        elif o == "--paired-options":
+            # gmapper.c:2181-2199 (case 28); pair_mode comes from set 0
+            if unpaired_option_sets:
+                log("warning: unpaired mapping options set before paired "
+                    "mapping options! the latter take precedence.")
+                cfg.half_paired = True
+            try:
+                paired_option_sets.append(parse_readpair_mapping_options(a))
+            except (ValueError, IndexError):
+                log(f"error: invalid paired mapping options:[{a}]")
+                return 1
+            pair_mode = paired_option_sets[0].pairing.pair_mode
         elif o == "-M":
             # set_mode_from_string accepts only "mirna"; anything else —
             # including ls/cs — is rejected (gmapper.c:1495-1516,2119-2129)
@@ -482,6 +535,8 @@ def main(argv: list[str] | None = None,
             cfg.rev_tiebreak = True
         elif o in ("-t", "--tiebreak-off"):
             cfg.rev_tiebreak = False
+        elif o in ("-X", "--isize-histogram"):
+            x_isize_hist = True
         elif o in ("-Y", "--proj-histogram"):
             y_proj_hist = True
         elif o in ("-Z", "--cachebypass-off"):
@@ -493,6 +548,10 @@ def main(argv: list[str] | None = None,
         elif o in ("-V", "--trim-off"):
             cfg.list_cutoff = 0xFFFFFFFF
             auto_trim_off = True
+        elif o in ("-1", "--upstream"):
+            up_file = a
+        elif o in ("-2", "--downstream"):
+            down_file = a
         elif o == "--un":
             un_file = a
         elif o == "--al":
@@ -509,6 +568,12 @@ def main(argv: list[str] | None = None,
             cfg.global_alignment = True
         elif o == "--local":
             cfg.global_alignment = False
+        elif o == "--half-paired":
+            cfg.half_paired = True
+        elif o == "--no-half-paired":
+            cfg.half_paired = False
+        elif o == "--no-improper-mappings":
+            pass      # accepted and without effect, as in the JAX package
         elif o == "--no-mapping-qualities":
             cfg.compute_mapping_qualities = False
         elif o == "--single-best-mapping":
@@ -544,6 +609,10 @@ def main(argv: list[str] | None = None,
             if trim_end < 0:
                 log("--trim-end value must be positive")
                 return 1
+        elif o == "--trim-first":
+            trim_first, trim_second = True, False
+        elif o == "--trim-second":
+            trim_second, trim_first = True, False
         elif o == "--use-regions":
             cfg.use_regions = True
         elif o == "--region-overlap":
@@ -562,6 +631,8 @@ def main(argv: list[str] | None = None,
                 log(f"error: could not open sam header file [{a}]")
                 return 1
             sam_header_sections[o.rsplit("-", 1)[1]] = a
+        elif o == "--sam-r2":
+            sam_r2 = True
         elif o == "--no-autodetect-input":
             no_autodetect = True
         elif o in ("-?", "--help"):
@@ -572,6 +643,16 @@ def main(argv: list[str] | None = None,
 
     if read_group:
         cfg.sam_read_group_name = read_group[0]
+    cfg.sam_r2 = sam_r2
+
+    # SAM vs legacy output flag conflicts (gmapper.c:2466-2474)
+    if not shrimp_format and rflag:
+        log("-E and -R are incompatable")
+        return 1
+    if pair_mode != 0 and cfg.strand_mask != 3:
+        log("warning: in paired mode, both strands must be inspected; "
+            "ignoring -C and -F")          # gmapper.c:2446-2449
+        cfg.strand_mask = 3
 
     score_updates: dict[str, int] = dict(score_assignments)
     # -g/-e set without -q/-f imply symmetric query-gap penalties
@@ -602,6 +683,9 @@ def main(argv: list[str] | None = None,
         log("error: cannot use global (or bfast) and ungapped mode at the "
             "same time!")
         return 1
+    if cfg.sam_unaligned and shrimp_format:
+        log("error: when using flag --sam-unaligned must also use -E/--sam")
+        return 1
     if cfg.window_len >= 0 and cfg.window_len < 100.0:
         log("error: window length < 100% of read length")
         return 1
@@ -610,10 +694,13 @@ def main(argv: list[str] | None = None,
             "resetting to 100%")
         cfg.window_overlap = 100.0
     if not match_mode_set:
-        cfg.match_mode_unpaired = 2     # DEF_MATCH_MODE_UNPAIRED
+        # DEF_MATCH_MODE_{UNPAIRED,PAIRED} (gmapper.c:2349-2351)
+        cfg.match_mode_unpaired = 2 if pair_mode == 0 else 4
     mm = cfg.match_mode_unpaired
-    if not 1 <= mm <= 2:
-        log(f"error: invalid match mode [pair_mode=0;match_mode={mm}]")
+    if (pair_mode == 0 and not 1 <= mm <= 2) or \
+            (pair_mode != 0 and not 2 <= mm <= 4):
+        log(f"error: invalid match mode [pair_mode={pair_mode};"
+            f"match_mode={mm}]")
         return 1
     if mirna and seed_specs is None and not seed_weight:
         # default mirna seed set only when none given (gmapper.c:2375-2379)
@@ -632,22 +719,89 @@ def main(argv: list[str] | None = None,
     log("--------------------------------------------------"
         "------------------------------")
 
+    # ----- insert-size histogram setup (gmapper.c:2357-2368) -----
+    insert_histogram = None
+    insert_bucket_size = 1
+    if x_isize_hist and pair_mode == 0:
+        log("warning: insert histogram not available in unpaired mode; "
+            "ignoring")
+        x_isize_hist = False
+    if pair_mode != 0:
+        insert_bucket_size = telemetry.ceil_div(
+            isize_max - isize_min + 1, 100)
+        insert_histogram = [1] * 100          # +1 prior per bucket
+
     # ----- index -----
     t0 = time.time()
-    if len(positional) < 2:
-        log(f"error: {'reads_file, ' if not positional else ''}"
-            "genome_file(s) not specified")
+    if len(positional) < (1 if (up_file or down_file) else 2):
+        # exact error + short usage (gmapper.c:2423-2436)
+        if up_file or down_file:
+            log("error: genome_file(s) not specified")
+        else:
+            log(f"error: {'reads_file, ' if not positional else ''}"
+                "genome_file(s) not specified")
         usage(prog, mode, seed_strings=_usage_seeds(), state=_usage_state())
         return 1
-    reads_files = positional[:1]
-    genome_files = positional[1:]
+    if up_file or down_file:
+        genome_files = positional
+        reads_files = []
+    else:
+        reads_files = positional[:1]
+        genome_files = positional[1:]
     seed_set = seedmod.make_seed_set(seed_specs, weight=seed_weight,
                                      use_hashing=use_hashing)
 
-    def _print_option_set(out):
-        out("Unpaired mapping options, set [0]")
-        telemetry.print_read_mapping_options(out, cfg.unpaired_options()[0],
-                                             False)
+    def _print_paired_set_default(out):
+        # default paired construction (gmapper.c:2634-2716)
+        class _P:
+            pair_mode_name = PAIR_MODE_NAMES[pair_mode]
+            min_insert_size = isize_min
+            max_insert_size = isize_max
+            pass1_num_outputs = 3 * cfg.num_outputs
+            pass2_num_outputs = cfg.num_outputs
+            pass1_threshold = cfg.vect_threshold()
+            pass2_threshold = cfg.sw_full_threshold
+            strata = cfg.strata
+            save_outputs = cfg.compute_mapping_qualities
+            stop_count = 1 if cfg.half_paired else 0
+            stop_threshold = 101.0 if cfg.half_paired else 50.0
+        telemetry.print_pairing_options(out, _P)
+        mm2 = cfg.match_mode_unpaired
+        ro = ReadMappingOptions()
+        ro.regions.recompute = cfg.use_regions and mm2 != 2
+        ro.anchor_list.use_region_counts = cfg.use_regions and mm2 != 2
+        if cfg.use_regions:
+            ro.anchor_list.use_mp_region_counts = (
+                1 if mm2 == 4 and not cfg.half_paired
+                else 2 if mm2 == 3 and cfg.half_paired
+                else 3 if mm2 == 3 and not cfg.half_paired else 0)
+        ro.hit_list.gapless = cfg.gapless
+        ro.hit_list.match_mode = (2 if mm2 == 4 else 3 if mm2 == 3 else 1)
+        ro.hit_list.threshold = cfg.window_gen_threshold
+        ro.pass1.only_paired = True
+        ro.pass1.gapless = cfg.gapless
+        ro.pass1.min_matches = 2 if mm2 == 4 else 1
+        ro.pass1.threshold = cfg.vect_threshold()
+        ro.pass1.window_overlap = cfg.window_overlap
+        ro.pass2.strata = cfg.strata
+        ro.pass2.threshold = cfg.sw_full_threshold * 0.5
+        telemetry.print_read_mapping_options(log, ro, True)
+        telemetry.print_read_mapping_options(log, ro, True)
+
+    def _option_printers():
+        if pair_mode != 0:
+            def p_paired(out):
+                out("Paired mapping options, set [0]")
+                _print_paired_set_default(out)
+            return [p_paired]
+        printers = []
+        for i, os_ in enumerate(unpaired_option_sets
+                                or cfg.unpaired_options()):
+            def p_unp(out, i=i, os_=os_):
+                out(f"Unpaired mapping options, set [{i}]")
+                telemetry.print_read_mapping_options(out, os_, False)
+            printers.append(p_unp)
+        return printers
 
     telemetry.print_settings(
         log, seed_set=seed_set, num_threads=threads, chunk_size=chunk,
@@ -666,7 +820,7 @@ def main(argv: list[str] | None = None,
         single_best_mapping=cfg.single_best_mapping,
         colour_space=colour, params=cfg.params,
         probs=ScoreProbs.from_scores(cfg.params, colour),
-        option_set_printers=[_print_option_set])
+        option_set_printers=_option_printers())
     contigs = []
     for gf in genome_files:
         log(f"- Processing genome file [{gf}]")
@@ -688,23 +842,33 @@ def main(argv: list[str] | None = None,
     if y_proj_hist:
         telemetry.print_genomemap_stats(log, idx)
 
+    # ----- read input -----
+    if (up_file or down_file) and not (up_file and down_file):
+        log("error: need both -1 and -2 for split pair files")
+        return 1
     # reads-file open notes, in the reference's order (fasta.c:113-121,
-    # gmapper.c:2871-2902)
+    # gmapper.c:2871-2902); only the single/-1 file is opened with
+    # autodetect (gmapper.c:2867-2878)
+    det_fastq = fastq
     if not no_autodetect:
-        det_fastq = fastx.detect_fastq(reads_files[0])
+        rf_ = up_file if up_file else reads_files[0]
+        det_fastq = fastx.detect_fastq(rf_)
         log(f"note: detected {'fastq' if det_fastq else 'fasta'} "
-            f"format in input file [{reads_files[0]}]")
+            f"format in input file [{rf_}]")
+    if up_file:
+        log(f"- Processing read files [{up_file} , {down_file}]")
     else:
-        det_fastq = fastq
-    log(f"- Processing read file [{reads_files[0]}]")
+        log(f"- Processing read file [{reads_files[0]}]")
     if det_fastq or fastq:
         log("note: quality value format "
             + (f"set to PHRED+{cfg.qual_delta}" if qv_offset_set
                else f"not set explicitly; using PHRED+{cfg.qual_delta}"))
 
-    # ----- SAM header -----
+    # ----- SAM header, or the legacy format line -----
     out = sys.stdout
-    if sam_header_file:
+    if shrimp_format:
+        out.write(legacy_mod.format_line(rflag) + "\n")
+    elif sam_header_file:
         with open(sam_header_file) as fh:
             out.write(fh.read())
     else:
@@ -725,10 +889,30 @@ def main(argv: list[str] | None = None,
                        if read_group else []))
         section("pg", [f"@PG\tID:gmapper\tVN:{VERSION}\tCL:{' '.join(argv)}"])
 
-    mapper = Mapper(idx, cfg, device=device)
+    # --trim-first/--trim-second are paired-mode-only mate selectors
+    # (gmapper.c:425-441,2352-2355)
+    if pair_mode == 0 and (not trim_first or not trim_second):
+        log("error: cannot use --trim-first or --trim-second in "
+            "unpaired mode")
+        return 1
+    if pair_mode != 0:
+        pcfg = PairedConfig(pair_mode=pair_mode,
+                            min_insert_size=isize_min,
+                            max_insert_size=isize_max,
+                            insert_size_mean=insert_size_mean,
+                            insert_size_stddev=insert_size_stddev,
+                            match_mode=cfg.match_mode_unpaired)
+        mapper = PairedMapper(idx, cfg, pcfg, device=device)
+        paired_popts = [mapper._popts_from(rpo)
+                        for rpo in paired_option_sets]
+    else:
+        mapper = Mapper(idx, cfg, device=device)
 
-    def trim_rec(rec):
-        if trim_front or trim_end:
+    def trim_rec(rec, mate=None):
+        do_trim = (mate is None
+                   or (mate == 0 and trim_first)
+                   or (mate == 1 and trim_second))
+        if do_trim and (trim_front or trim_end):
             keep = len(rec.seq) - trim_front - trim_end
             rec.seq = rec.seq[trim_front:trim_front + keep]
             if rec.qual:
@@ -746,7 +930,8 @@ def main(argv: list[str] | None = None,
         return rec
 
     n_dropped_intake = 0   # intake drops: over-length + low avg qv
-    #                        (gmapper.c:495-531)
+    #                        (gmapper.c:495-531; counts READS, also in
+    #                        paired mode where the stats call them pairs)
 
     def rec_ok(rec):
         nonlocal n_dropped_intake
@@ -782,8 +967,15 @@ def main(argv: list[str] | None = None,
         return True
 
     n_reads = 0
+    n_intake_reads_skipped = 0   # paired mode: reads of pairs dropped at
+    #                              intake (still counted in nreads)
     n_matched = 0
     n_matched_conf = 0           # reads with an emitted hit MQV >= 10
+    n_pairs_matched = 0
+    n_pairs_matched_conf = 0
+    n_paired_matches = 0
+    n_unp_reads_matched = 0      # paired mode: half-paired fallback reads
+    n_unp_matches = 0
     un_recs: list = []
     al_recs: list = []
     t_map0 = time.time()
@@ -801,30 +993,129 @@ def main(argv: list[str] | None = None,
         _prog_last[0] = n_reads
         _prog_last[1] = now
 
-    def triples_gen():
-        for rf in reads_files:
-            for rec in fastx.iter_reads(rf, fastq=fastq):
-                rec = trim_rec(rec)
-                if rec_ok(rec):
-                    yield (rec.name, rec.seq, rec.qual)
+    def reads_stream():
+        if up_file:
+            it1 = fastx.iter_reads(up_file, fastq=fastq)
+            it2 = fastx.iter_reads(down_file, fastq=fastq)
+            for r1 in it1:
+                r2 = next(it2, None)
+                if r2 is None:
+                    break
+                yield r1
+                yield r2
+        else:
+            for rf in reads_files:
+                yield from fastx.iter_reads(rf, fastq=fastq)
 
-    # the pipelined stream: host candidate work overlaps the device work
-    # of neighbouring batches
-    for re_e, hits in mapper.map_stream(triples_gen(), batch_size=batch_size,
-                                        n_workers=threads):
-        n_reads += 1
-        if hits:
-            n_matched += 1
-            if any(h.mqv >= 10 for h in hits):
-                n_matched_conf += 1
-            if al_file:
-                al_recs.append(re_e)
-        elif un_file:
-            un_recs.append(re_e)
-        for rec in mapper.sam_records(re_e, hits):
-            out.write(rec.line() + "\n")
-        if progress and n_reads % progress == 0:
-            progress_print()
+    stream = reads_stream()
+    if pair_mode != 0:
+        def pairs_gen():
+            nonlocal n_intake_reads_skipped
+            buf = None
+            for rec in stream:
+                if buf is None:
+                    buf = trim_rec(rec, mate=0)
+                    continue
+                r1, r2 = buf, trim_rec(rec, mate=1)
+                buf = None
+                ok1 = rec_ok(r1)
+                ok2 = rec_ok(r2)   # no short-circuit: both reads get the
+                #                    intake check + warning (gmapper.c:495)
+                if ok1 and ok2:
+                    yield ((r1.name, r1.seq, r1.qual),
+                           (r2.name, r2.seq, r2.qual))
+                else:
+                    n_intake_reads_skipped += 2
+            if buf is not None:
+                log("warning: odd number of reads in paired mode; "
+                    "dropping the last one")
+
+        # the pipelined stream: two batches on worker threads, one's host
+        # work overlapping the other's kernels
+        for pr in mapper.map_pair_stream(
+                pairs_gen(), batch_size=max(batch_size // 2, 1),
+                option_sets=paired_popts or None):
+            n_reads += 2
+            got = bool(pr.paired_hits or pr.unpaired_hits)
+            n_matched += 2 if got else 0
+            if got and al_file:
+                al_recs.extend(pr.re)
+            elif not got and un_file:
+                un_recs.extend(pr.re)
+            if pr.paired_hits:
+                n_pairs_matched += 1
+                n_paired_matches += len(pr.paired_hits)
+                if any(fh1.mqv >= 10 or fh2.mqv >= 10
+                       for fh1, fh2, _ in pr.paired_hits):
+                    n_pairs_matched_conf += 1
+            elif pr.unpaired_hits:
+                if any(fh.mqv >= 10 for _, fh in pr.unpaired_hits):
+                    n_matched_conf += 1
+            if pr.unpaired_hits:
+                n_unp_matches += len(pr.unpaired_hits)
+                n_unp_reads_matched += len({nip for nip, _
+                                            in pr.unpaired_hits})
+            if insert_histogram is not None:
+                for _fh1, _fh2, isz in pr.paired_hits:
+                    insert_histogram[telemetry.insert_histogram_bucket(
+                        isz, isize_min, insert_bucket_size)] += 1
+            if shrimp_format:
+                for line in mapper.legacy_records_pair(pr, rflag):
+                    out.write(line + "\n")
+            else:
+                for rec in mapper.sam_records_pair(pr):
+                    out.write(rec.line() + "\n")
+            if progress and n_reads % progress < 2:
+                progress_print()
+    else:
+        def emit_result(re_e, hits):
+            nonlocal n_reads, n_matched, n_matched_conf
+            n_reads += 1
+            if hits:
+                n_matched += 1
+                if any(h.mqv >= 10 for h in hits):
+                    n_matched_conf += 1
+                if al_file:
+                    al_recs.append(re_e)
+            elif un_file:
+                un_recs.append(re_e)
+            if shrimp_format:
+                for line in mapper.legacy_records(re_e, hits, rflag):
+                    out.write(line + "\n")
+            else:
+                for rec in mapper.sam_records(re_e, hits):
+                    out.write(rec.line() + "\n")
+            if progress and n_reads % progress == 0:
+                progress_print()
+
+        if len(unpaired_option_sets) > 1:
+            # multi-round option sets go through map_batch's round loop
+            while True:
+                batch = []
+                for rec in stream:
+                    batch.append(trim_rec(rec))
+                    if len(batch) >= batch_size:
+                        break
+                if not batch:
+                    break
+                triples = [(r.name, r.seq, r.qual)
+                           for r in batch if rec_ok(r)]
+                for re_e, hits in mapper.map_batch(
+                        triples, options=unpaired_option_sets):
+                    emit_result(re_e, hits)
+        else:
+            # single option set: the pipelined stream (host candidate work
+            # overlaps the device work of neighbouring batches)
+            def triples_gen():
+                for rec in stream:
+                    rec = trim_rec(rec)
+                    if rec_ok(rec):
+                        yield (rec.name, rec.seq, rec.qual)
+            for re_e, hits in mapper.map_stream(
+                    triples_gen(), batch_size=batch_size,
+                    options=unpaired_option_sets or None,
+                    n_workers=threads):
+                emit_result(re_e, hits)
 
     dt = time.time() - t_map0
     if progress > 0:
@@ -843,7 +1134,8 @@ def main(argv: list[str] | None = None,
         colour_space=colour,
         load_genome_secs=load_genome_secs,
         mapping_secs=dt,
-        nreads=n_reads + n_dropped_intake,
+        nreads=n_reads + (n_dropped_intake if pair_mode == 0
+                          else n_intake_reads_skipped),
         num_threads=threads,
         dflag=d_stats,
         engine_info={
@@ -854,15 +1146,29 @@ def main(argv: list[str] | None = None,
             "device_candidates": cfg.device_candidates,
             "device_l3_fallbacks": ms.get("device_l3_fallbacks", 0),
         },
-        pair_mode_none=True,
+        pair_mode_none=(pair_mode == 0),
         half_paired=cfg.half_paired,
-        total_reads_matched=n_matched,
+        total_reads_matched=(n_matched if pair_mode == 0
+                             else n_unp_reads_matched),
         total_reads_matched_conf=n_matched_conf,
         total_reads_dropped=(ms.get("reads_dropped_max_aln", 0)
-                             + n_dropped_intake),
-        total_single_matches=ms.get("total_matches", 0),
+                             + (n_dropped_intake if pair_mode == 0
+                                else 0)),
+        total_single_matches=(ms.get("total_matches", 0)
+                              if pair_mode == 0 else n_unp_matches),
         total_dup_single_matches=ms.get("dup_matches_pruned", 0),
-        genomemap_bytes=genome_bytes)
+        total_pairs_matched=n_pairs_matched,
+        total_pairs_matched_conf=n_pairs_matched_conf,
+        total_pairs_dropped=(ms.get("pairs_dropped_max_aln", 0)
+                             + (n_dropped_intake if pair_mode != 0
+                                else 0)),
+        total_paired_matches=n_paired_matches,
+        total_dup_paired_matches=ms.get("dup_pairs_pruned", 0),
+        genomemap_bytes=genome_bytes,
+        xflag=x_isize_hist,
+        insert_histogram=insert_histogram,
+        min_insert_size=isize_min,
+        insert_histogram_bucket_size=insert_bucket_size)
     return 0
 
 

@@ -28,7 +28,8 @@ run, on the CPU their plain versions.  The gapless pass 1 gathers its
 diagonals from the same resident planes (the JAX package gathers them on
 the host).
 
-Paired mapping is not ported yet.
+Paired mapping (`pipeline/paired.py`) subclasses this Mapper and runs
+the same kernels on both mates' rows, each framed at its input strand.
 """
 
 from __future__ import annotations
@@ -220,7 +221,6 @@ class Mapper:
                       "pass2_windows": 0, "dup_matches_pruned": 0,
                       "reads_dropped_max_aln": 0, "reads_matched_conf": 0,
                       "device_l3_fallbacks": 0}
-        self.tel = telemetry.Telemetry()
         self._dev_l3 = None
         # K10's device planes, kept between calls (ops/candidates_device.py)
         self._dev_l3_ws = candidates_device.L3Workspace()
@@ -233,6 +233,7 @@ class Mapper:
         # read-modify-writes must not interleave (#pragma omp atomic
         # analogue, mapping.c:1732-1750)
         self._stats_lock = threading.Lock()
+        self.tel = telemetry.Telemetry(lock=self._stats_lock)
 
     def _bump(self, **deltas) -> None:
         with self._stats_lock:
@@ -273,17 +274,19 @@ class Mapper:
                         out).astype(np.int8)
 
     def _vector_scores(self, entries, rid, st, cn, g_off_pos, w_len,
-                       G: int, R: int) -> torch.Tensor:
+                       istrand, G: int, R: int) -> torch.Tensor:
         """Pass-1 vector-SW scores for hit rows (g_off in pos-strand
-        frame).  Returns an int32 tensor on the mapper's device, still in
-        flight on a card.
+        frame); istrand int [N] is each row's input strand (0 unpaired; a
+        reversed mate's rows 1).  Returns an int32 tensor on the mapper's
+        device, still in flight on a card.
 
-        LS scores read[st] against the forward genome.  CS first applies
-        the reverse_hit framing (read_pass1_per_strand,
-        mapping.c:1317-1341): the input-strand colour read (strand 0)
-        against the colour plane of the hit's genome strand, colour 0
-        against lstocs(letter plane, initbp); a reverse hit starts one
-        genome length into the fw||rc planes.
+        LS scores read[st] against the forward genome (istrand plays no
+        part).  CS first applies the reverse_hit framing
+        (read_pass1_per_strand, mapping.c:1317-1341): the input-strand
+        colour read, read[istrand], against the colour plane of the hit's
+        genome strand (reverse where st != istrand), colour 0 against
+        lstocs(letter plane, initbp); a reverse hit starts one genome
+        length into the fw||rc planes.
 
         Windows are gathered from the resident planes at int64 starts on
         every device — fused into the kernel on a card, by the plain
@@ -302,7 +305,7 @@ class Mapper:
                 self._to_device(st.astype(np.int32)), rb2, G,
                 self.cfg.params)
         clen = self.index.contig_len[cn].astype(np.int64)
-        rev = st != 0
+        rev = st != istrand
         goff_f = np.where(rev, clen - g_off_pos - w_len.astype(np.int64),
                           g_off_pos)
         lo = (self.index.contig_offsets[cn].astype(np.int64) + goff_f
@@ -310,11 +313,12 @@ class Mapper:
         initbp = np.array([entries[r].initbp for r in rid], np.int8)
         return sw_vector.p1_gather_score_cs(
             dix.cs_cat, dix.ls_cat, self._to_device(lo.astype(np.int64)),
-            wl, rid_d, self._to_device(np.zeros(len(rid), np.int32)),
+            wl, rid_d, self._to_device(np.asarray(istrand, np.int32)),
             self._to_device(initbp), rb2, G, self.vect_params)
 
     def _gapless_scores(self, entries, rid, st, cn, g_off_pos, ax, ay,
-                        al, aw, w_len, R: int) -> torch.Tensor:
+                        al, aw, w_len, R: int,
+                        istrand=None) -> torch.Tensor:
         """Pass-1 gapless scores: sw_gapless along the anchor diagonal
         (f1_run with gapless=true, f1-wrapper.h:118-120; sw-gapless.c:58).
         Returns an int32 tensor on the mapper's device, still in flight on
@@ -322,14 +326,18 @@ class Mapper:
 
         g_idx = g_off + anchor.x, r_idx = anchor.y in the hit's genome-strand
         frame (read_pass1_per_strand, mapping.c:1335-1348); CS applies the
-        reverse_hit framing first and reads the read as given (strand 0)
-        against the hit strand's half of the fw||rc planes.  The framing
-        is O(hits) NumPy on the host; the diagonals are gathered from the
-        resident planes on every device (in the kernel on a card, by the
-        plain version on the CPU), the CS forced first colour made there
-        too, so per batch only O(hits) arrays and the [B, 2, R] read matrix
-        cross to the device."""
+        reverse_hit framing first (reverse where st != istrand; istrand
+        int [N] each row's input strand, constant per read, by default 0,
+        the read as given) and reads the
+        input-strand read, read[istrand], against the hit strand's half of
+        the fw||rc planes.  The framing is O(hits) NumPy on the host; the
+        diagonals are gathered from the resident planes on every device (in
+        the kernel on a card, by the plain version on the CPU), the CS
+        forced first colour made there too, so per batch only O(hits)
+        arrays and the [B, 2, R] read matrix cross to the device."""
         dix = self.dev_index
+        if istrand is None:
+            istrand = np.zeros(len(rid), np.int8)
         g_off = g_off_pos.astype(np.int64)
         ax = ax.astype(np.int64)
         ay = ay.astype(np.int64)
@@ -342,7 +350,7 @@ class Mapper:
             wl = w_len.astype(np.int64)
             al = al.astype(np.int64)
             aw = aw.astype(np.int64)
-            rev = st != 0
+            rev = st != istrand
             g_off = np.where(rev, clen - g_off - wl, g_off)
             ax = np.where(rev, -ax + (wl - 1) - (al - 1) - (aw - 1), ax)
             ay = np.where(rev, -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
@@ -356,11 +364,19 @@ class Mapper:
                               .astype(np.int32))
         start = dix.contig_offsets[h64[0]] + h64[1] + h64[2]
         glen = dix.contig_lens[h64[0]] - h64[1]
-        rb2 = self._reads2_device(entries, R)
         p = self.vect_params
         if not cs:
             return sw_gapless.p1_gather_gapless_ls(
-                dix.plane, start, glen, h32[0], h32[1], h32[2], rb2, p)
+                dix.plane, start, glen, h32[0], h32[1], h32[2],
+                self._reads2_device(entries, R), p)
+        # the colour-space kernel reads strand 0 of the read matrix: put
+        # each read's input strand there (unpaired reads are all at 0)
+        rb2 = self._reads2_matrix(entries, R)
+        flip = np.zeros(len(entries), bool)
+        flip[rid[np.asarray(istrand) != 0]] = True
+        if flip.any():
+            rb2[flip] = rb2[flip][:, ::-1]
+        rb2 = self._to_device(rb2)
         initbp = self._to_device(np.array([e.initbp for e in entries],
                                           np.int8))
         return sw_gapless.p1_gather_gapless_cs(
@@ -852,8 +868,10 @@ class Mapper:
                 hb.anchor_length[idxs], hb.anchor_width[idxs],
                 hb.w_len[idxs], R)
         else:
+            # unpaired reads are at input strand 0, the read as given
             dev = self._vector_scores(entries, rid, st, hb.cn[idxs],
-                                      hb.g_off[idxs], hb.w_len[idxs], G, R)
+                                      hb.g_off[idxs], hb.w_len[idxs],
+                                      np.zeros(len(idxs), np.int8), G, R)
         return {"idxs": idxs, "rid": rid, "st": st, "dev": dev, "R": R}
 
     def _pass1(self, entries, hb: cb.HitBatch, opts):
@@ -1008,7 +1026,13 @@ class Mapper:
 
     def _pass2_dispatch(self, entries, sel):
         """Launch the pass-2 full-SW kernel; device results stay in
-        flight until _pass2_finish."""
+        flight until _pass2_finish.
+
+        sel["istrand"], where given, is each row's input strand (the
+        paired path's reversed mates: 1); the read row is read[istrand]
+        and the hit lies on the reverse genome strand where st !=
+        istrand (hit_run_full_sw, mapping.c:383-398).  Unpaired rows are
+        at input strand 0."""
         cfg = self.cfg
         N = len(sel["rid"])
         rid = sel["rid"]
@@ -1017,9 +1041,11 @@ class Mapper:
         w_len = sel["w_len"].astype(np.int64)
         clen = self.index.contig_len[cn]
         rlen = np.array([entries[r].read_len for r in rid], np.int64)
+        istrand = np.asarray(sel.get("istrand", np.zeros(N, np.int8)),
+                             np.int8)
 
         # reverse_hit (mapping.c:272-281)
-        gen_st = st.astype(np.int64)
+        gen_st = (st != istrand).astype(np.int64)
         g_off = np.where(gen_st == 1, clen - sel["g_off"] - w_len,
                          sel["g_off"]).astype(np.int64)
         ax = sel["anchor_x"].astype(np.int64)
@@ -1035,7 +1061,7 @@ class Mapper:
         gb_f = self._gather_windows(self.index.genome, cn, g_off, w_len, G)
         gb_r = self._gather_windows(self.genome_rc, cn, g_off, w_len, G)
         gb = np.where(rev_mask[:, None], gb_r, gb_f)
-        rb = self._reads_matrix(entries, rid, np.zeros(N, np.int8), R)
+        rb = self._reads_matrix(entries, rid, istrand, R)
         rev = rev_mask & cfg.rev_tiebreak
 
         if cfg.anchor_width >= 0:
@@ -1072,7 +1098,7 @@ class Mapper:
             xover = np.full((N, R), cfg.params.crossover, np.int32)
             for n, r in enumerate(rid):
                 e = entries[r]
-                qr4[n, :, :e.read_len] = e.read_ls4
+                qr4[n, :, :e.read_len] = cand.get_read_ls4(e, istrand[n])
                 if e.crossover_score is not None:
                     xover[n, :e.read_len] = e.crossover_score
             # the 4-layer DP: the same packed form over the full band
@@ -1103,7 +1129,7 @@ class Mapper:
         cn = ctx["cn"]
         _t0 = time.time()
         stats = ctx["stats_d"].cpu().numpy()[:N]
-        self.tel.f2.secs += time.time() - _t0
+        self.tel.f2.add(0, 0, time.time() - _t0)
         # scalar-SW invocations: in LS the reference only runs sw_full_ls
         # when the per-hit vector re-score clears the pass2 threshold
         # (mapping.c:406-415); that re-score equals the pass1 vector score
@@ -1242,11 +1268,15 @@ class Mapper:
 
     # ------------------------------------------------------------------
     def _select_hits(self, finals: list[FinalHit],
-                     opts: ReadMappingOptions) -> list[FinalHit]:
+                     opts: ReadMappingOptions,
+                     compute_mqv: bool | None = None) -> list[FinalHit]:
         """Dedup, sort, trim, strata, max-alignments, MQV
-        (read_pass2, mapping.c:1690-1763)."""
+        (read_pass2, mapping.c:1690-1763).  compute_mqv overrides the
+        config flag (the paired mapper computes its own class-based MQVs)
+        without mutating shared state."""
         cfg = self.cfg
-        compute_mqv = cfg.compute_mapping_qualities
+        if compute_mqv is None:
+            compute_mqv = cfg.compute_mapping_qualities
 
         def gen_start_key(fh: FinalHit):
             return (fh.cn, fh.gen_st, fh.g_off + fh.genome_start)
@@ -1323,10 +1353,48 @@ class Mapper:
         sw_full.render_alignment(res, window, re.read[0])
         return res.dbalign, res.qralign
 
-    def _append_tail_tags(self, rec, re_e, fh) -> None:
-        """RG:Z and --extra-sam-fields tags, in the reference's order
-        (output.c:452-464, 731-756)."""
+    def legacy_record(self, re: cand.ReadEntry, fh: FinalHit,
+                      include_read: bool) -> str:
+        """One legacy SHRiMP-format line (hit_output !Eflag branch,
+        gmapper/output.c:272-295)."""
+        from shrimp_tpu_torch.io import legacy
+        dbal, qral = self.render_hit_alignment(re, fh)
+        read_seq = None
+        if include_read:
+            if self.cfg.colour_space:
+                read_seq = (dna.decode([re.initbp])
+                            + dna.decode(re.read[0], dna.COLOUR_SPACE))
+            else:
+                read_seq = dna.decode(re.read[0])
+        return legacy.output_normal(
+            re.name, self.index.contig_names[fh.cn],
+            genome_start0=fh.g_off + fh.genome_start, gmapped=fh.gmapped,
+            read_start0=fh.read_start, rmapped=fh.rmapped,
+            read_length=re.read_len, score=fh.score_full,
+            dbalign=dbal, qralign=qral,
+            genome_len=int(self.index.contig_len[fh.cn]),
+            revcmpl=fh.gen_st == 1, read_seq=read_seq)
+
+    def legacy_records(self, re: cand.ReadEntry, hits: list[FinalHit],
+                       include_read: bool = False) -> list[str]:
+        """Legacy-format lines for one read (`-P`, the pretty blocks, is
+        not ported)."""
+        if not hits:
+            return [f">{re.name}"] if self.cfg.sam_unaligned else []
+        sel = hits
+        if self.cfg.single_best_mapping and self.cfg.compute_mapping_qualities:
+            best = max(range(len(hits)), key=lambda i: hits[i].mqv)
+            sel = [hits[best]]
+        return [self.legacy_record(re, fh, include_read) for fh in sel]
+
+    # ------------------------------------------------------------------
+    def _append_tail_tags(self, rec, re_e, fh, mate_re=None) -> None:
+        """R2/X2, RG:Z and --extra-sam-fields tags, in the reference's
+        order (output.c:452-464, 731-756)."""
         cfg = self.cfg
+        if cfg.sam_r2 and mate_re is not None:
+            tag = "X2" if cfg.colour_space else "R2"
+            rec.tags.append(f"{tag}:Z:{mate_re.seq}")
         if cfg.sam_read_group_name:
             rec.tags.append(f"RG:Z:{cfg.sam_read_group_name}")
         if cfg.extra_sam_fields and fh is not None:

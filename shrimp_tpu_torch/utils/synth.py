@@ -1,12 +1,12 @@
 """Synthetic corpora for size runs: a genome with diverged repeats, and
-mutated letter-space and colour-space reads drawn from it with their true
-positions.
+mutated letter-space and colour-space reads and read pairs drawn from it
+with their true positions.
 
 The generators of the JAX package's bench (`bench.make_genome`,
 `bench.mutate_read`, `bench.make_reads`) and grid bench
-(`benchmarks/bench_grid.py::make_cs_reads`), kept here so that the port
-needs nothing outside its own package; with the same seeds they give the
-same arrays.  The genome size is an argument instead of a module global.
+(`benchmarks/bench_grid.py::make_cs_reads`, `make_pairs`), kept here so
+that the port needs nothing outside its own package; with the same seeds
+they give the same arrays.  The genome size is an argument instead of a module global.
 """
 
 from __future__ import annotations
@@ -102,3 +102,23 @@ def make_cs_reads(idx, rng, n_reads):
         reads.append((f"c{i:05d}", "".join(cs), qual))
         truth.append(p)
     return reads, np.array(truth)
+
+
+def make_pairs(idx, rng, n_pairs):
+    """Opp-in read pairs, insert 150-450, each READ_LEN mate mutated by
+    mutate_read (1 SNP + 1 indel + 4% error); ((name, seq, qual), (name,
+    seq, qual)) pairs and the truth, mate 1's start."""
+    genome = idx.genome
+    L = len(genome)
+    pairs = []
+    truth = []
+    for i in range(n_pairs):
+        ins = int(rng.integers(150, 450))
+        p = int(rng.integers(0, L - ins - 16))
+        m1 = mutate_read(genome[p:p + READ_LEN + 6], rng)
+        m2 = dna.reverse_complement(mutate_read(
+            genome[p + ins - READ_LEN:p + ins + 6], rng))
+        pairs.append(((f"p{i:05d}/1", dna.decode(m1), "h" * READ_LEN),
+                      (f"p{i:05d}/2", dna.decode(m2), "h" * READ_LEN)))
+        truth.append(p)
+    return pairs, np.array(truth)

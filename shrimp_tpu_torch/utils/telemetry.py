@@ -58,11 +58,16 @@ class KernelStats:
     invocs: int = 0
     cells: int = 0
     secs: float = 0.0
+    # shared with the owning Telemetry (and its Mapper's _stats_lock): the
+    # pipelined streams add from two worker threads at once
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
 
     def add(self, invocs: int, cells: int, secs: float = 0.0) -> None:
-        self.invocs += int(invocs)
-        self.cells += int(cells)
-        self.secs += secs
+        with self.lock:
+            self.invocs += int(invocs)
+            self.cells += int(cells)
+            self.secs += secs
 
     @property
     def cells_per_sec(self) -> float:
@@ -77,16 +82,19 @@ class StageTimer:
     concurrently; each thread accumulates its own interval (cumulative
     stage seconds may exceed wall time, like summed per-thread tpg)."""
 
-    def __init__(self):
+    def __init__(self, lock=None):
         self.secs = 0.0
         self._local = threading.local()
+        self.lock = lock or threading.Lock()
 
     def __enter__(self):
         self._local.t0 = time.time()
         return self
 
     def __exit__(self, *exc):
-        self.secs += time.time() - self._local.t0
+        dt = time.time() - self._local.t0
+        with self.lock:
+            self.secs += dt
         return False
 
 
@@ -106,13 +114,23 @@ class Telemetry:
     stages: dict = field(default_factory=lambda: {
         s: StageTimer() for s in STAGES})
     fasta_load_secs: float = 0.0
+    # guards every counter and timer above (Mapper passes its _stats_lock)
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
+
+    def __post_init__(self):
+        for ks in (self.f1, self.f2, self.fwbw):
+            ks.lock = self.lock
+        for timer in self.stages.values():
+            timer.lock = self.lock
 
     def stage(self, name: str) -> StageTimer:
         # auto-create: the paired pipeline adds stages beyond the base
         # STAGES tuple (pair_up, hp_pass1, hp_pass2, paired_mqv)
-        timer = self.stages.get(name)
-        if timer is None:
-            timer = self.stages[name] = StageTimer()
+        with self.lock:
+            timer = self.stages.get(name)
+            if timer is None:
+                timer = self.stages[name] = StageTimer(self.lock)
         return timer
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from shrimp_tpu_torch import gmapper
+from shrimp_tpu_torch.utils import golden_cli
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -51,9 +52,9 @@ def test_read_group_and_extra_fields():
 
 
 @pytest.mark.parametrize("flags", [
-    ["-p", "opp-in"], ["--mode", "cs", "-p", "opp-in"],
+    ["--load-mmap", "prefix"], ["--index-format", "ref"],
     ["-S", "prefix"], ["-L", "prefix"], ["--genome-shards", "2"],
-    ["-P"], ["--shrimp-format"],
+    ["-P"], ["--devices", "2"],
 ], ids=lambda f: f[0])
 def test_flags_outside_the_slice_exit_1(flags):
     rc, out, err = run(flags + ["reads.fq", "genome.fa"])
@@ -103,6 +104,18 @@ def test_colour_space_and_gapless_goldens(case):
                           device="cpu")
     assert rc == 0, se.getvalue()[-2000:]
     assert body(so.getvalue()) == golden_body(gold)
+
+
+@pytest.mark.parametrize("case", sorted(golden_cli.UNPAIRED))
+def test_unpaired_goldens_of_the_jax_suites(case, tmp_path):
+    """The unpaired goldens that the JAX package's suites hold its CLI to
+    (thresholds, local mode, gap symmetry, hashed seeds, read groups,
+    extra SAM fields, messy inputs, the seed-quality filter), with their
+    flags, through the port's CLI."""
+    spec = golden_cli.UNPAIRED[case]
+    rc, out, err = golden_cli.run_case(spec, str(tmp_path), device="cpu")
+    assert rc == 0, err[-2000:]
+    assert golden_cli.compared(out, spec[4]) == golden_cli.expected(spec[4])
 
 
 def test_ungapped_needs_local():

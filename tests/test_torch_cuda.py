@@ -31,7 +31,7 @@ from shrimp_tpu_torch.pipeline import candidates_batch as cb
 from shrimp_tpu_torch.pipeline.candidates import cs_read_ls4
 from shrimp_tpu_torch.pipeline.mapper import Mapper
 from shrimp_tpu_torch.pipeline.options import MapperConfig
-from shrimp_tpu_torch.utils import gapless_cases
+from shrimp_tpu_torch.utils import gapless_cases, golden_cli
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LS = SWParams.letter_space()
@@ -537,11 +537,12 @@ def test_goldens_through_the_kernels(cuda_device, genome, reads, gold):
 
 
 def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
-               st=0, threshold=55.0, repeat=0):
+               st=0, threshold=55.0, repeat=0, read_len=50):
     """A random three-contig index and device_candidates' read arrays for
-    one strand of reads drawn from it (up to two substitutions each).
-    With `repeat`, that many more copies of one 2 kb stretch, and every
-    fourth read drawn from it: reads with thousands of postings."""
+    one strand of `read_len`-base reads drawn from it (up to two
+    substitutions each).  With `repeat`, that many more copies of one 2 kb
+    stretch, and every fourth read drawn from it: reads with thousands of
+    postings."""
     rng = np.random.default_rng(seed)
     contigs = [rng.integers(0, 4, contig_len).astype(np.int8)
                for _ in range(3)]
@@ -555,11 +556,11 @@ def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
         seedmod.make_seed_set(None, use_hashing=use_hashing))
     reads = []
     for i in range(n_reads):
-        p = (int(rng.integers(0, 1950)) if repeat and i % 4 == 0
-             else int(rng.integers(0, len(idx.genome) - 50)))
-        r = idx.genome[p:p + 50].copy()
+        p = (int(rng.integers(0, 2000 - read_len)) if repeat and i % 4 == 0
+             else int(rng.integers(0, len(idx.genome) - read_len)))
+        r = idx.genome[p:p + read_len].copy()
         for _ in range(int(rng.integers(0, 3))):
-            q = int(rng.integers(0, 50))
+            q = int(rng.integers(0, read_len))
             r[q] = (r[q] + int(rng.integers(1, 4))) % 4
         if rng.random() < 0.5:
             r = dna.reverse_complement(r)
@@ -567,7 +568,7 @@ def _l3_inputs(seed, use_hashing=False, contig_len=60_000, n_reads=256,
     cfg = MapperConfig(qual_delta=64)
     entries = cand.prepare_reads(reads, cfg, idx.seed_set.min_span)
     B = len(entries)
-    codes = np.zeros((B, 64), np.int8)
+    codes = np.zeros((B, max(64, -(-read_len // 16) * 16)), np.int8)
     rlen, minpos, wlen, thr = (np.zeros(B, np.int32) for _ in range(4))
     for b, e in enumerate(entries):
         codes[b, :e.read_len] = e.read[st]
@@ -604,6 +605,10 @@ L3_CASES = {
     # reads past both shared-memory tiers: the global-memory tier
     "repeats": ({"seed": 41, "repeat": 100, "contig_len": 200_000,
                  "n_reads": 64}, {"use_region_counts": True}),
+    # 950-base reads: with the rows' offsets (34 KB) the shared memory of
+    # the per-read kernels passes 48 KB
+    "long_reads": ({"seed": 43, "read_len": 950, "n_reads": 32},
+                   {"use_region_counts": True}),
 }
 # the cases cut at a capacity, which report an overflow
 L3_CUT = {"overflow", "a2_cut", "h_cut"}
@@ -728,6 +733,103 @@ def test_goldens_through_device_candidates(cuda_device, genome, reads, gold,
                          if not ln.startswith("@")]
     assert tcd.LAUNCHES.value > before
     assert m.stats["device_l3_fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the paired path's launches: rows at input strand 1, both mates in one
+# pass-2 launch with R from the longer one, bands as wide as the window
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R", [(128, 56), (128, 88)])
+def test_sw_vector_cs_gather_at_input_strand_1_equals_plain(cuda_device, G,
+                                                            R):
+    """K2-CS on rows at input strand 1 (a reversed mate's: the read row
+    is reads2[rid, 1]), mixed with rows at input strand 0."""
+    rng = np.random.default_rng(G + R)
+    L, C = 40000, 256
+    pad = np.full(1 << 12, tsv.GENOME_PAD, np.int8)
+    cs_cat = np.concatenate([rng.integers(0, 5, 2 * L).astype(np.int8), pad])
+    ls_cat = np.concatenate([rng.integers(0, 5, 2 * L).astype(np.int8), pad])
+    wlen = rng.integers(G // 2, G + 1, C).astype(np.int32)
+    lo = rng.integers(0, 2 * L - G, C).astype(np.int64)
+    reads2 = np.full((32, 2, R), tsv.READ_PAD, np.int8)
+    for b in range(32):
+        n = int(rng.integers(R // 2, R + 1))
+        reads2[b, :, :n] = rng.integers(0, 4, (2, n))
+    rid = rng.integers(0, 32, C).astype(np.int32)
+    ist = (rid % 2).astype(np.int32)
+    initbp = rng.integers(0, 4, C).astype(np.int8)
+    args = [torch.from_numpy(a) for a in
+            (cs_cat, ls_cat, lo, wlen, rid, ist, initbp, reads2)]
+    want = tsv.p1_gather_score_cs_plain(*args, G, CS_VECT)
+    got = tsv.p1_gather_score_cs(*[a.to(cuda_device) for a in args], G,
+                                 CS_VECT)
+    assert torch.equal(got.cpu(), want)
+    at_0 = tsv.p1_gather_score_cs_plain(
+        *args[:5], torch.zeros_like(args[5]), *args[6:], G, CS_VECT)
+    assert not torch.equal(want, at_0)      # the strand-1 rows differ
+
+
+def _mates_batch(seed, cs: bool, G=128, R=88):
+    """Both mates' feet of one paired pass-2 launch: 50-base and 80-base
+    mates at R 88 (the longer mate's), a random half with the full band
+    [0, glen - 1], so W = G = 128."""
+    if cs:
+        a = _cs_pass2_inputs(seed, 48, G, R, 50, W=64)
+        b = _cs_pass2_inputs(seed + 1, 48, G, R, 80, W=64)
+    else:
+        a = _pass2_inputs(seed, 48, G, R, 50, 64)
+        b = _pass2_inputs(seed + 1, 48, G, R, 80, 64)
+    args = [torch.cat([x, y]) for x, y in zip(a, b)]
+    full = list(_full_band(args))
+    wide = torch.from_numpy(np.random.default_rng(seed).random(96) < 0.5)
+    for k in (-2, -1):
+        args[k] = torch.where(wide[:, None], full[k], args[k]).contiguous()
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
+def test_sw_full_mates_at_full_band_equal_plain(cuda_device, loc):
+    """K3+K4 on a paired launch: two mate lengths, half the rows at full
+    band (where the JAX package runs its unbanded K5), W = G."""
+    args = _mates_batch(31, cs=False)
+    want = tsf.sw_full_and_traceback_packed_plain(*args, LS, loc, 128)
+    got = tsf.sw_full_and_traceback_packed(
+        *[a.to(cuda_device) for a in args], LS, loc, 128)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glocal"])
+def test_sw_full_cs_mates_at_full_band_equal_plain(cuda_device, loc):
+    """K7+K8 on a paired launch: two mate lengths, half the rows at full
+    band (where the JAX package runs its unbanded K9), W = G."""
+    args = _mates_batch(37, cs=True)
+    want = tcs.sw_full_cs_and_traceback_packed_plain(*args, CS, loc, 0, 128)
+    got = tcs.sw_full_cs_and_traceback_packed(
+        *[a.to(cuda_device) for a in args], CS, loc, 0, 128)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["golden_paired", "golden_cs_col-fw",
+                                  "golden_legacy_paired"])
+def test_paired_goldens_through_the_kernels(cuda_device, case, tmp_path):
+    """The paired CLI on the card: pass 1 and pass 2 of both mates through
+    the kernels, byte-equal to the reference."""
+    spec = {**golden_cli.PAIRED_LS, **golden_cli.PAIRED_CS,
+            **golden_cli.LEGACY}[case]
+    cs = "--mode" in spec[1] and "cs" in spec[1]
+    p1, p2 = ((tsv.CS_LAUNCHES, tcs.LAUNCHES) if cs
+              else (tsv.LAUNCHES, tsf.LAUNCHES))
+    before = (p1.value, p2.value)
+    rc, out, err = golden_cli.run_case(spec, str(tmp_path))
+    assert rc == 0, err[-2000:]
+    assert "PyTorch port on cuda" in err
+    assert golden_cli.compared(out, spec[4]) == golden_cli.expected(spec[4])
+    assert p1.value > before[0] and p2.value > before[1]
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

@@ -187,14 +187,16 @@ def test_synth_genome_equals_bench(small_bench_genome):
         assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
-@pytest.mark.parametrize("gen", ["make_reads", "make_cs_reads"])
+@pytest.mark.parametrize("gen", ["make_reads", "make_cs_reads",
+                                 "make_pairs"])
 def test_synth_reads_equal_bench(small_bench_genome, gen):
     chroms = synth.make_genome(np.random.default_rng(3), small_bench_genome)
     idx = gindex.build_index([fastx.Contig(name=f"chr{i + 1}", codes=g)
                               for i, g in enumerate(chroms)],
                              seedmod.make_seed_set(None))
-    want_fn = (bench.make_reads if gen == "make_reads"
-               else bench_grid.make_cs_reads)
+    want_fn = {"make_reads": bench.make_reads,
+               "make_cs_reads": bench_grid.make_cs_reads,
+               "make_pairs": bench_grid.make_pairs}[gen]
     reads, truth = getattr(synth, gen)(idx, np.random.default_rng(7), 300)
     jreads, jtruth = want_fn(idx, np.random.default_rng(7), 300)
     assert reads == jreads

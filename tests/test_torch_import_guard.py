@@ -88,6 +88,8 @@ import sys
 import shrimp_tpu_torch.gmapper
 import shrimp_tpu_torch.ops.candidates_device
 import shrimp_tpu_torch.pipeline.mapper
+import shrimp_tpu_torch.pipeline.paired
+import shrimp_tpu_torch.utils.golden_cli
 import shrimp_tpu_torch.utils.synth
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu", "bench",
@@ -113,6 +115,8 @@ def _port_sources():
     for root, _, names in os.walk(os.path.join(REPO, "shrimp_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 25
+    assert os.path.join(REPO, "shrimp_tpu_torch", "pipeline",
+                        "paired.py") in files
     return files
 
 
