@@ -101,6 +101,35 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               candidates: what size-gapless reports, the first 1,024
               reads through the plain versions, the gapless kernel timed
               on the largest call
+ 14. goldens-tools  (after phase 7) index save and load, -P, prettyprint
+              and the host tools at golden size, through the port's CLI
+              and tools on the card: -S then -L and the reference binary's
+              projection (-L tests/golden/refproj) -> golden_unpaired.sam,
+              --save-mmap then --load-mmap (40 records of mini_reads.fq),
+              --index-format ref and both saved and loaded back, -P ->
+              golden_legacy_pretty.out, prettyprint in both spaces ->
+              golden_prettyprint_{ls,cs}.out (K3+K4 and K7+K8 over the
+              full band), and the cluster workflow (splitdb, splitreads,
+              one gmapper per shard pair, mergesam) equal to the whole run
+              outside Z0 / Z1; prettyprint's launches, and both kernels
+              against their plain versions at its largest launches
+ 15. size-tools  (the letter-space part after phase 11, on its index
+              before it is freed; the colour-space part after phase 13)
+              the 100 Mbp genome written once as FASTA; (a)
+              GenomeIndex.save_mmap of the size index, the CLI with
+              --load-mmap on the first 2,048 size reads, SAM equal to the
+              size phase's (save, load-to-first-batch and map seconds,
+              what "auto" chose for K10, peak device memory); (b) the same
+              reads with --local --shrimp-format, then prettyprint on
+              K3+K4: no "score differs" warning, every score the recorded
+              one, the first 256 records' output equal to the plain
+              versions' (CPU); (c) the first 1,024 size-cs reads through a
+              --load-mmap colour-space index with --shrimp-format (records
+              equal to size-cs's), then prettyprint --mode cs on K7+K8
+              (its warnings counted: a colour-space record's score is the
+              posterior's), the first 256 records as in (b); both kernels
+              timed against their plain versions at prettyprint's largest
+              launch
 
 Each timing line gives a kernel's `ms` (CUDA events around 20 calls of
 its wrapper: where a kernel's device time is below its wrapper's host
@@ -123,11 +152,14 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import atexit
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -146,6 +178,8 @@ SIZE_PROFILE_READS = 8_192
 SIZE_PAIRS = 4_096
 SIZE_PAIR_BATCH = 1_024
 SIZE_PROFILE_PAIRS = 2_048
+# size-tools: prettyprint's records held to its plain run
+SIZE_TOOLS_PLAIN = 256
 
 KERNELS = {
     "sw_vector": {"source": "shrimp_tpu_torch/csrc/sw_vector.cu",
@@ -735,11 +769,11 @@ def _first_difference(a: list, b: list) -> int:
 
 
 def phase_size(device: dict, idx, reads, truth,
-               index_secs: float) -> tuple[dict, dict, dict, list]:
+               index_secs: float) -> tuple[dict, dict, dict, list, list]:
     """The main path at 100 Mbp with host candidates: map, count
     launches, check quality, and check the first batch against the plain
     versions.  Returns the launches, the recorded largest calls, the
-    stats and the SAM lines."""
+    stats, the SAM lines and those of the first batch."""
     import torch
 
     from shrimp_tpu_torch.ops import sw_full, sw_vector
@@ -803,7 +837,7 @@ def phase_size(device: dict, idx, reads, truth,
     log("size: profile " + json.dumps(
         profile_map(mapper, reads[:SIZE_PROFILE_READS], SIZE_BATCH)))
     return launches, {"sw_vector": rec1.args, "sw_full": rec2.args}, \
-        stats, lines
+        stats, lines, first
 
 
 def _cpu(args) -> list:
@@ -813,41 +847,46 @@ def _cpu(args) -> list:
 
 def time_kernels(args: dict, reps: int = 20) -> dict:
     """Kernel (CUDA events) against plain version (host clock, CPU
-    tensors) on recorded main-path inputs; outputs must agree."""
+    tensors) on recorded inputs, for each kernel of `args`; outputs must
+    agree."""
     from shrimp_tpu_torch.ops import sw_full, sw_vector
     out = {}
-    a = args["sw_vector"]
-    got = sw_vector.p1_gather_score_ls_cuda(*a)
-    ms = cuda_ms(lambda: sw_vector.p1_gather_score_ls_cuda(*a), reps)
-    ca = _cpu(a)
-    plain_ms, want = host_ms(lambda: sw_vector.p1_gather_score_ls_plain(*ca))
-    plane, lo, wlen, rid, st, reads2, G = a[:7]
-    out["sw_vector"] = {
-        "shape": {"windows": int(lo.shape[0]), "G": int(G),
-                  "R": int(reads2.shape[2])},
-        "max_abs_err": max_abs_err(got, want), "ms": ms,
-        "plain_ms": plain_ms,
-        **_gather_bound("sw_vector", (lo, wlen, rid, st), wlen, rid, st,
-                        reads2, G, 1, (got,))}
-    a = args["sw_full"]
-    s_got, o_got = sw_full.sw_full_and_traceback_packed_cuda(*a)
-    ms = cuda_ms(lambda: sw_full.sw_full_and_traceback_packed_cuda(*a), reps)
-    ca = _cpu(a)
-    plain_ms, (s_want, o_want) = host_ms(
-        lambda: sw_full.sw_full_and_traceback_packed_plain(*ca))
-    gb, rb, rev, bxmin, bxmax = a[:5]
-    R, W = int(rb.shape[1]), int(a[7])
-    out["sw_full"] = {
-        "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
-                  "R": R, "W": W,
-                  "plan": sw_full.launch_plan(int(gb.shape[1]), R, W)},
-        "max_abs_err": max(max_abs_err(s_got, s_want),
-                           max_abs_err(o_got, o_want)),
-        "ms": ms, "plain_ms": plain_ms,
-        "device_ms": device_ms(
-            lambda: sw_full.sw_full_and_traceback_packed_cuda(*a), reps),
-        **_band_bound("sw_full", (rb.cpu() != READ_PAD).sum(1), bxmin,
-                      bxmax, (gb, rb, rev, bxmin, bxmax), (s_got, o_got))}
+    if "sw_vector" in args:
+        a = args["sw_vector"]
+        got = sw_vector.p1_gather_score_ls_cuda(*a)
+        ms = cuda_ms(lambda: sw_vector.p1_gather_score_ls_cuda(*a), reps)
+        ca = _cpu(a)
+        plain_ms, want = host_ms(
+            lambda: sw_vector.p1_gather_score_ls_plain(*ca))
+        plane, lo, wlen, rid, st, reads2, G = a[:7]
+        out["sw_vector"] = {
+            "shape": {"windows": int(lo.shape[0]), "G": int(G),
+                      "R": int(reads2.shape[2])},
+            "max_abs_err": max_abs_err(got, want), "ms": ms,
+            "plain_ms": plain_ms,
+            **_gather_bound("sw_vector", (lo, wlen, rid, st), wlen, rid, st,
+                            reads2, G, 1, (got,))}
+    if "sw_full" in args:
+        a = args["sw_full"]
+        s_got, o_got = sw_full.sw_full_and_traceback_packed_cuda(*a)
+        ms = cuda_ms(lambda: sw_full.sw_full_and_traceback_packed_cuda(*a),
+                     reps)
+        ca = _cpu(a)
+        plain_ms, (s_want, o_want) = host_ms(
+            lambda: sw_full.sw_full_and_traceback_packed_plain(*ca))
+        gb, rb, rev, bxmin, bxmax = a[:5]
+        R, W = int(rb.shape[1]), int(a[7])
+        out["sw_full"] = {
+            "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
+                      "R": R, "W": W,
+                      "plan": sw_full.launch_plan(int(gb.shape[1]), R, W)},
+            "max_abs_err": max(max_abs_err(s_got, s_want),
+                               max_abs_err(o_got, o_want)),
+            "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms(
+                lambda: sw_full.sw_full_and_traceback_packed_cuda(*a), reps),
+            **_band_bound("sw_full", (rb.cpu() != READ_PAD).sum(1), bxmin,
+                          bxmax, (gb, rb, rev, bxmin, bxmax), (s_got, o_got))}
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -1460,9 +1499,11 @@ def size_cs_index(contigs: list):
 
 
 def phase_size_cs(device: dict, idx, reads, truth,
-                  index_secs: float) -> tuple[dict, dict, dict]:
+                  index_secs: float) -> tuple[dict, dict, dict, list]:
     """The colour-space path at 100 Mbp: map, count launches, check
-    quality, and check the first reads against the plain versions."""
+    quality, and check the first reads against the plain versions.
+    Returns the launches, the recorded largest calls, the stats and the
+    legacy-format lines of the first SIZE_CS_PLAIN reads."""
     import torch
 
     from shrimp_tpu_torch.pipeline.options import MapperConfig
@@ -1525,50 +1566,56 @@ def phase_size_cs(device: dict, idx, reads, truth,
     log(f"size-cs: first {SIZE_CS_PLAIN} reads identical through the plain "
         f"versions ({len(first)} SAM lines; plain map {plain_secs:.1f} s on "
         f"the host CPU)")
+    legacy = [ln for re_e, hits in results[:SIZE_CS_PLAIN]
+              for ln in mapper.legacy_records(re_e, hits)]
     return launches, {"sw_vector_cs": rec1.args, "sw_full_cs": rec2.args}, \
-        stats
+        stats, legacy
 
 
 def time_kernels_cs(args: dict, reps: int = 20) -> dict:
     """The colour-space kernels (CUDA events) against their plain versions
-    (host clock, CPU tensors) on recorded inputs; outputs must agree."""
+    (host clock, CPU tensors) on recorded inputs, for each kernel of
+    `args`; outputs must agree."""
     from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
     out = {}
-    a = args["sw_vector_cs"]
-    got = sw_vector.p1_gather_score_cs_cuda(*a)
-    ms = cuda_ms(lambda: sw_vector.p1_gather_score_cs_cuda(*a), reps)
-    ca = _cpu(a)
-    plain_ms, want = host_ms(
-        lambda: sw_vector.p1_gather_score_cs_plain(*ca))
-    lo, wlen, rid, ist, initbp, reads2, G = a[2:9]
-    out["sw_vector_cs"] = {
-        "shape": {"windows": int(lo.shape[0]), "G": int(G),
-                  "R": int(reads2.shape[2])},
-        "max_abs_err": max_abs_err(got, want), "ms": ms,
-        "plain_ms": plain_ms,
-        **_gather_bound("sw_vector_cs", (lo, wlen, rid, ist, initbp), wlen,
-                        rid, ist, reads2, G, 2, (got,))}
-    a = args["sw_full_cs"]
-    s_got, o_got = sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a)
-    ms = cuda_ms(
-        lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a), reps)
-    ca = _cpu(a)
-    plain_ms, (s_want, o_want) = host_ms(
-        lambda: sw_full_cs.sw_full_cs_and_traceback_packed_plain(*ca))
-    gb, qr4, xover, rev, bxmin, bxmax = a[:6]
-    R, W = int(qr4.shape[2]), int(a[9])
-    out["sw_full_cs"] = {
-        "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
-                  "R": R, "W": W, "taboo_len": int(a[8]),
-                  "plan": sw_full_cs.launch_plan(int(gb.shape[1]), R, W)},
-        "max_abs_err": max(max_abs_err(s_got, s_want),
-                           max_abs_err(o_got, o_want)),
-        "ms": ms, "plain_ms": plain_ms,
-        "device_ms": device_ms(
-            lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a), reps),
-        **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
-                      bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
-                      (s_got, o_got))}
+    if "sw_vector_cs" in args:
+        a = args["sw_vector_cs"]
+        got = sw_vector.p1_gather_score_cs_cuda(*a)
+        ms = cuda_ms(lambda: sw_vector.p1_gather_score_cs_cuda(*a), reps)
+        ca = _cpu(a)
+        plain_ms, want = host_ms(
+            lambda: sw_vector.p1_gather_score_cs_plain(*ca))
+        lo, wlen, rid, ist, initbp, reads2, G = a[2:9]
+        out["sw_vector_cs"] = {
+            "shape": {"windows": int(lo.shape[0]), "G": int(G),
+                      "R": int(reads2.shape[2])},
+            "max_abs_err": max_abs_err(got, want), "ms": ms,
+            "plain_ms": plain_ms,
+            **_gather_bound("sw_vector_cs", (lo, wlen, rid, ist, initbp), wlen,
+                            rid, ist, reads2, G, 2, (got,))}
+    if "sw_full_cs" in args:
+        a = args["sw_full_cs"]
+        s_got, o_got = sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a)
+        ms = cuda_ms(
+            lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a), reps)
+        ca = _cpu(a)
+        plain_ms, (s_want, o_want) = host_ms(
+            lambda: sw_full_cs.sw_full_cs_and_traceback_packed_plain(*ca))
+        gb, qr4, xover, rev, bxmin, bxmax = a[:6]
+        R, W = int(qr4.shape[2]), int(a[9])
+        out["sw_full_cs"] = {
+            "shape": {"alignments": int(gb.shape[0]), "G": int(gb.shape[1]),
+                      "R": R, "W": W, "taboo_len": int(a[8]),
+                      "plan": sw_full_cs.launch_plan(int(gb.shape[1]), R, W)},
+            "max_abs_err": max(max_abs_err(s_got, s_want),
+                               max_abs_err(o_got, o_want)),
+            "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms(
+                lambda: sw_full_cs.sw_full_cs_and_traceback_packed_cuda(*a),
+                reps),
+            **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
+                          bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
+                          (s_got, o_got))}
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version: "
@@ -2175,6 +2222,399 @@ def time_kernels_l3(rec: dict, idx, reps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# index save / load, -P, prettyprint and the host tools
+def run_main(main, argv: list, device="cuda") -> tuple[int, str, str]:
+    """A CLI's `main(argv, device=...)` in this process: (rc, stdout,
+    stderr)."""
+    import contextlib
+    import io
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = main(argv, device=device)
+    return rc, so.getvalue(), se.getvalue()
+
+
+def run_tool(name: str, args: list) -> tuple[int, str, str]:
+    """`python -m shrimp_tpu_torch.tools.<name> args` (a host tool) in
+    this process."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"shrimp_tpu_torch.tools.{name}")
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = mod.main([name] + list(args))
+    if rc != 0:
+        raise AssertionError(f"{name}: rc {rc}\n" + se.getvalue()[-2000:])
+    return rc, so.getvalue(), se.getvalue()
+
+
+def _records(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if ln and not ln.startswith("@")]
+
+
+def _strip_z(lines: list[str]) -> list[str]:
+    return ["\t".join(f for f in ln.split("\t")
+                      if not f.startswith(("Z0", "Z1"))) for ln in lines]
+
+
+def gmapper_cli(what: str, args: list, want: list | None = None) -> str:
+    """The port's gmapper CLI on the card; its SAM records held to `want`
+    where given.  Returns stdout."""
+    from shrimp_tpu_torch import gmapper
+    t0 = time.time()
+    rc, out, err = run_main(gmapper.main, ["gmapper"] + list(args))
+    if rc != 0:
+        raise AssertionError(f"{what}: gmapper rc {rc}\n" + err[-2000:])
+    if "PyTorch port on cuda" not in err:
+        raise AssertionError(f"{what}: the CLI did not run on the card")
+    if want is not None and _records(out) != want:
+        got = _records(out)
+        raise AssertionError(
+            f"{what}: SAM differs at record {_first_difference(got, want)} "
+            f"({len(got)} vs {len(want)} records)")
+    log(f"goldens-tools: {what} ({time.time() - t0:.1f} s)")
+    return out
+
+
+def cluster_workflow(tmpdir: str, genome: str, reads: str) -> dict:
+    """SHRiMP2's cluster workflow (tests/test_cluster_workflow.py) through
+    the port: splitdb shards the genome, splitreads the reads, one gmapper
+    on the card per (read shard, genome shard), mergesam per read shard;
+    the merged SAM must equal the whole run's outside Z0 / Z1."""
+    d = os.path.join(tmpdir, "cluster")
+    os.makedirs(d)
+    run_tool("splitdb", ["--ram-size", "0.6117", "--prefix",
+                         os.path.join(d, "db"), genome])
+    shards = sorted(os.path.join(d, f) for f in os.listdir(d)
+                    if f.endswith(".fa"))
+    run_tool("splitreads", ["100", reads, os.path.join(d, "rs")])
+    read_shards = sorted(os.path.join(d, f) for f in os.listdir(d)
+                         if f.startswith("rs"))
+    if len(shards) < 2 or len(read_shards) < 2:
+        raise AssertionError(f"cluster: {len(shards)} genome and "
+                             f"{len(read_shards)} read shards")
+    merged = []
+    for ri, rs in enumerate(read_shards):
+        sams = []
+        for gi, gs in enumerate(shards):
+            path = os.path.join(d, f"m{ri}{gi}.sam")
+            with open(path, "w") as fh:
+                fh.write(gmapper_cli(f"cluster: read shard {ri} x genome "
+                                     f"shard {gi}", ["-Q", rs, gs]))
+            sams.append(path)
+        merged += _records(run_tool("mergesam", ["-E", "-Q", rs] + sams)[1])
+    whole = _records(gmapper_cli("cluster: the whole run",
+                                 ["-Q", reads, genome]))
+    if _strip_z(merged) != _strip_z(whole):
+        raise AssertionError(
+            f"cluster: merged SAM differs from the whole run at record "
+            f"{_first_difference(_strip_z(merged), _strip_z(whole))} "
+            f"({len(merged)} vs {len(whole)})")
+    return {"genome_shards": len(shards), "read_shards": len(read_shards),
+            "records": len(merged)}
+
+
+def _pass2_recorders() -> dict:
+    from shrimp_tpu_torch.ops import sw_full, sw_full_cs
+    return {"sw_full": Recorder(sw_full, "sw_full_and_traceback_packed_cuda",
+                                lambda a: a[0].shape[0]),
+            "sw_full_cs": Recorder(sw_full_cs,
+                                   "sw_full_cs_and_traceback_packed_cuda",
+                                   lambda a: a[0].shape[0])}
+
+
+def phase_goldens_tools() -> dict:
+    """Index save and load, -P, prettyprint and the cluster workflow at
+    golden size, through the port's CLI and tools on the card: -S / -L and
+    --save-mmap / --load-mmap round trips, -L on the reference binary's
+    projection (tests/golden/refproj), --index-format ref and both saved
+    and loaded back, -P, prettyprint in both spaces (K3+K4 and K7+K8 over
+    the full band), each byte-equal to its golden; the cluster workflow
+    equal to the whole run outside Z0 / Z1.  prettyprint's launches are
+    counted, and both kernels held to their plain versions at its largest
+    launches.  Returns those launches."""
+    import tempfile
+
+    import torch
+
+    from shrimp_tpu_torch.tools import prettyprint
+    t_all = time.time()
+    genome = os.path.join(GOLDEN, "golden_genome.fa")
+    reads = os.path.join(GOLDEN, "golden_reads.fq")
+    mini = os.path.join(GOLDEN, "mini_reads.fq")
+    unpaired = _golden_body("golden_unpaired.sam")
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "npz")
+        gmapper_cli("-S", ["-S", p, genome])
+        gmapper_cli("-L -> golden_unpaired.sam", ["-L", p, "-Q", reads],
+                    unpaired)
+        p = os.path.join(d, "shm")
+        gmapper_cli("--save-mmap", ["--save-mmap", p, genome])
+        n = len(_records(gmapper_cli("--load-mmap mini_reads.fq",
+                                     ["--load-mmap", p, "-Q", mini])))
+        if n != 40:
+            raise AssertionError(f"--load-mmap: {n} records, not 40")
+        gmapper_cli("-L refproj (the reference's projection) -> "
+                    "golden_unpaired.sam",
+                    ["-L", os.path.join(GOLDEN, "refproj"), "-Q", reads],
+                    unpaired)
+        for fmt in ("ref", "both"):
+            p = os.path.join(d, fmt)
+            gmapper_cli(f"-S --index-format {fmt}",
+                        ["-S", p, "--index-format", fmt, genome])
+            have = {ext: os.path.exists(p + ext)
+                    for ext in (".genome", ".seed.0", ".idx.npz")}
+            if have != {".genome": True, ".seed.0": True,
+                        ".idx.npz": fmt == "both"}:
+                raise AssertionError(f"--index-format {fmt} wrote {have}")
+            gmapper_cli(f"-L ({fmt}) -> golden_unpaired.sam",
+                        ["-L", p, "-Q", reads], unpaired)
+        out = gmapper_cli("-P -> golden_legacy_pretty.out", [
+            "--mode", "ls", "-Q", "--shrimp-format", "-P", mini, genome])
+        with open(os.path.join(GOLDEN, "golden_legacy_pretty.out")) as fh:
+            if out != fh.read():
+                raise AssertionError("-P differs from golden_legacy_pretty")
+        recs = _pass2_recorders()
+        reset_launches()
+        with recs["sw_full"], recs["sw_full_cs"]:
+            for flags, legacy, rd, gold in (
+                    ([], "legacy_tiny.out", "mini_reads.fa",
+                     "golden_prettyprint_ls.out"),
+                    (["--mode", "cs"], "legacy_cs_tiny.out",
+                     "mini_reads_cs.fa", "golden_prettyprint_cs.out")):
+                rc, out, err = run_main(prettyprint.main, [
+                    "prettyprint", *flags, os.path.join(GOLDEN, legacy),
+                    genome, os.path.join(GOLDEN, rd)])
+                with open(os.path.join(GOLDEN, gold)) as fh:
+                    if rc != 0 or out != fh.read():
+                        raise AssertionError(f"prettyprint {legacy}: rc {rc}"
+                                             f", output differs from {gold}\n"
+                                             + err[-2000:])
+                log(f"goldens-tools: prettyprint {legacy} -> {gold}")
+        torch.cuda.synchronize()
+        launches = read_launches(("sw_full", "sw_full_cs"))
+        log("goldens-tools: prettyprint launches " + json.dumps(launches))
+        log("goldens-tools: cluster workflow equal to the whole run "
+            "outside Z0/Z1 " + json.dumps(cluster_workflow(d, genome,
+                                                            reads)))
+    rows = {**time_kernels({"sw_full": recs["sw_full"].args}, 5),
+            **time_kernels_cs({"sw_full_cs": recs["sw_full_cs"].args}, 5)}
+    log("goldens-tools: prettyprint's kernels against their plain versions "
+        "at its largest launches: " + json.dumps(rows))
+    log(f"goldens-tools: {time.time() - t_all:.1f} s")
+    return launches
+
+
+def write_fastq(path: str, reads: list) -> None:
+    with open(path, "w") as fh:
+        for name, seq, qual in reads:
+            fh.write(f"@{name}\n{seq}\n+\n{qual}\n")
+
+
+def write_genome_fasta(path: str, contigs: list) -> float:
+    """The contigs as FASTA (80 bases a line); returns the seconds."""
+    from shrimp_tpu_torch import dna
+    t0 = time.time()
+    with open(path, "w") as fh:
+        for c in contigs:
+            seq = dna.decode(c.codes)
+            fh.write(f">{c.name}\n")
+            fh.write("\n".join(seq[i:i + 80]
+                               for i in range(0, len(seq), 80)) + "\n")
+    return time.time() - t0
+
+
+def timed_cli(argv: list) -> dict:
+    """The port's gmapper CLI on the card, timed: the seconds from its
+    start to its first batch (banner, index attach, the Mapper's planes
+    copied to the card) and from there to its end (the map, which
+    includes K10's postings shipped from the index, timed apart as
+    `l3_ship_secs`), what "auto" chose for K10, and the peak device
+    memory."""
+    import torch
+
+    from shrimp_tpu_torch import gmapper
+    from shrimp_tpu_torch.pipeline.mapper import Mapper
+    seen = {}
+    orig = Mapper.map_stream
+
+    def map_stream(self, *a, **kw):
+        seen.setdefault("t", time.time())
+        seen["mapper"] = self
+        return orig(self, *a, **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    Mapper.map_stream = map_stream
+    t0 = time.time()
+    try:
+        rc, out, err = run_main(gmapper.main, ["gmapper"] + list(argv))
+        torch.cuda.synchronize()
+    finally:
+        Mapper.map_stream = orig
+    t1 = time.time()
+    if rc != 0 or "PyTorch port on cuda" not in err:
+        raise AssertionError(f"gmapper {' '.join(argv[:6])}: rc {rc}\n"
+                             + err[-2000:])
+    m = seen.pop("mapper")
+    return {"out": out,
+            "load_to_first_batch_secs": round(seen["t"] - t0, 3),
+            "map_secs": round(t1 - seen["t"], 3),
+            "l3_choice": m._l3_choice, "l3_reason": m._l3_reason,
+            "l3_ship_secs": (m._l3_model or {}).get("ship_secs_actual"),
+            "max_memory_allocated": int(torch.cuda.max_memory_allocated())}
+
+
+def _scores(lines) -> list[int]:
+    """The score column of legacy record lines."""
+    return [int(ln.split("\t")[8]) for ln in lines if ln.startswith(">")]
+
+
+def prettyprint_at_size(name: str, cs: bool, legacy_text: str,
+                        genome_fa: str, reads_fq: str,
+                        tmpdir: str) -> tuple[dict, tuple]:
+    """The port's prettyprint on a legacy file of the size corpus, on the
+    card: its K3+K4 / K7+K8 launches (counted from 0), the largest
+    launch's alignments and G, the seconds; then the first
+    SIZE_TOOLS_PLAIN records through the plain versions (CPU), whose
+    output must be the start of the card's.  Returns the row and the
+    largest launch's arguments."""
+    import torch
+
+    from shrimp_tpu_torch.tools import prettyprint
+    kernel = "sw_full_cs" if cs else "sw_full"
+    path = os.path.join(tmpdir, f"{name}.out")
+    with open(path, "w") as fh:
+        fh.write(legacy_text)
+    lines = legacy_text.splitlines(True)
+    head = os.path.join(tmpdir, f"{name}_head.out")
+    with open(head, "w") as fh:
+        fh.write("".join(lines[:1 + SIZE_TOOLS_PLAIN]))
+    flags = ["--mode", "cs"] if cs else []
+    rec = _pass2_recorders()[kernel]
+    reset_launches()
+    with rec:
+        t0 = time.time()
+        rc, out, err = run_main(prettyprint.main, [
+            "prettyprint", *flags, path, genome_fa, reads_fq])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    launches = read_launches((kernel,))
+    if rc != 0 or "missing data" in err:
+        raise AssertionError(f"{name}: prettyprint rc {rc}\n" + err[-2000:])
+    want = _scores(lines)
+    got = _scores(out.splitlines())
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} of {len(want)} records")
+    t0 = time.time()
+    rc, plain, _ = run_main(prettyprint.main, [
+        "prettyprint", *flags, head, genome_fa, reads_fq], "cpu")
+    plain_secs = time.time() - t0
+    if rc != 0 or not out.startswith(plain) or \
+            out[len(plain):len(plain) + 1] not in ("", ">"):
+        raise AssertionError(f"{name}: the first {SIZE_TOOLS_PLAIN} "
+                             "records differ from the plain versions'")
+    gb = rec.args[0]
+    return {"records": len(got), "launches": launches[kernel],
+            "largest_launch": {"alignments": int(gb.shape[0]),
+                               "G": int(gb.shape[1])},
+            "secs": round(secs, 3),
+            "score_differs_warnings": err.count("score differs"),
+            "scores_equal_recorded": sum(a == b for a, b in zip(got, want)),
+            "plain_records": min(SIZE_TOOLS_PLAIN, len(want)),
+            "plain_secs": round(plain_secs, 3)}, rec.args
+
+
+def phase_size_tools(device: dict, idx, reads: list, first_sam: list,
+                     genome_fa: str, tmpdir: str) -> tuple:
+    """The letter-space tools at 100 Mbp on the size phase's index and its
+    first SIZE_BATCH reads: (a) GenomeIndex.save_mmap, then the CLI with
+    --load-mmap, whose SAM must equal the size phase's for those reads;
+    (b) the same reads mapped with --local --shrimp-format (prettyprint
+    re-aligns locally: a global alignment's recorded score can be below
+    the local one), then prettyprint on K3+K4, with no "score differs"
+    warning and every record's score equal to the recorded one.  Returns
+    the largest prettyprint launch's arguments."""
+    import shutil
+    d = os.path.join(tmpdir, "size_ls")
+    os.makedirs(d)
+    t0 = time.time()
+    idx.save_mmap(os.path.join(d, "idx"))
+    save_secs = time.time() - t0
+    fq = os.path.join(d, "reads.fq")
+    write_fastq(fq, reads)
+    reset_launches()
+    run = timed_cli(["--load-mmap", os.path.join(d, "idx"), "-Q", fq])
+    names = ("sw_vector", "sw_full") + (
+        ("candidates_device",) if run["l3_choice"] == "device" else ())
+    launches = read_launches(names)
+    got = _records(run.pop("out"))
+    if got != first_sam:
+        raise AssertionError(
+            "size-tools: the --load-mmap SAM differs from the size phase's "
+            f"at record {_first_difference(got, first_sam)} ({len(got)} vs "
+            f"{len(first_sam)})")
+    log("size-tools: mmap " + json.dumps({
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "reads": len(reads), "sam_records": len(got),
+        "save_mmap_secs": round(save_secs, 3), **run,
+        "launches": launches}))
+    run = timed_cli(["--load-mmap", os.path.join(d, "idx"), "-Q", "--local",
+                     "--shrimp-format", fq])
+    row, args = prettyprint_at_size("size-tools-ls", False, run.pop("out"),
+                                    genome_fa, fq, d)
+    if row["score_differs_warnings"] or \
+            row["scores_equal_recorded"] != row["records"]:
+        raise AssertionError(f"size-tools: prettyprint scores differ: {row}")
+    log("size-tools: prettyprint " + json.dumps({
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "legacy_map": run, **row}))
+    shutil.rmtree(d)
+    return args
+
+
+def phase_size_tools_cs(device: dict, idx, reads: list, first_legacy: list,
+                        genome_fa: str, tmpdir: str) -> tuple:
+    """(c) The colour-space tools at 100 Mbp on size-cs's index and its
+    first SIZE_CS_PLAIN reads: save_mmap, the CLI with --mode cs
+    --load-mmap --shrimp-format, whose records must equal the size-cs
+    phase's for those reads, then prettyprint --mode cs on K7+K8.  A
+    colour-space record's score is the posterior's, not the re-alignment's
+    (each record of the reference's golden warns), so the warnings are
+    counted, not refused.  Returns the largest prettyprint launch's
+    arguments."""
+    import shutil
+    d = os.path.join(tmpdir, "size_cs")
+    os.makedirs(d)
+    t0 = time.time()
+    idx.save_mmap(os.path.join(d, "idx"))
+    save_secs = time.time() - t0
+    fq = os.path.join(d, "reads.fq")
+    write_fastq(fq, reads)
+    reset_launches()
+    run = timed_cli(["--mode", "cs", "--load-mmap", os.path.join(d, "idx"),
+                     "-Q", "--shrimp-format", fq])
+    launches = read_launches(("sw_vector_cs", "sw_full_cs"))
+    text = run.pop("out")
+    got = text.splitlines()[1:]
+    if got != first_legacy:
+        raise AssertionError(
+            "size-tools-cs: the --load-mmap records differ from size-cs's "
+            f"at {_first_difference(got, first_legacy)} ({len(got)} vs "
+            f"{len(first_legacy)})")
+    row, args = prettyprint_at_size("size-tools-cs", True, text, genome_fa,
+                                    fq, d)
+    log("size-tools-cs: " + json.dumps({
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "reads": len(reads), "legacy_records": len(got),
+        "save_mmap_secs": round(save_secs, 3), "legacy_map": run,
+        "launches": launches, "prettyprint": row}))
+    shutil.rmtree(d)
+    return args
+
+
 def golden_worker(names: list[str]) -> int:
     """`chip_smoke.py --golden-worker NAME...`: the named goldens of
     utils/golden_cli.py through the CLI on the card (phase_goldens_paired
@@ -2217,9 +2657,10 @@ def main() -> int:
                                                  cs=False)}))
     l3_golden_launches = phase_goldens_l3()
     phase_goldens_paired()
+    pp_golden_launches = phase_goldens_tools()
     contigs, gen_secs = size_contigs()
     idx, reads, truth, index_secs = size_index(contigs, gen_secs)
-    launches, size_args, size_stats, size_lines = phase_size(
+    launches, size_args, size_stats, size_lines, size_first = phase_size(
         device, idx, reads, truth, index_secs)
     size_times = time_kernels(size_args)
     log("kernel times at 100 Mbp main-path shapes (" + device["smi"]
@@ -2237,13 +2678,25 @@ def main() -> int:
     size_times["sw_gapless"] = time_gapless(gl_args, cs=False)
     log("sw_gapless time at 100 Mbp size-gapless shapes (" + device["smi"]
         + "): " + json.dumps(size_times["sw_gapless"]))
+    tools_reads = reads[:SIZE_BATCH]
     del gl_args, dev_l3, reads
     _, paired_args = phase_size_paired(device, idx)
     log("kernel times at 100 Mbp size-paired shapes (" + device["smi"]
         + "): " + json.dumps(time_kernels(paired_args)))
-    del paired_args, idx
+    del paired_args
+    tools_tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    atexit.register(shutil.rmtree, tools_tmp, True)
+    genome_fa = os.path.join(tools_tmp, "genome.fa")
+    log(f"size-tools: the 100 Mbp genome written as FASTA in "
+        f"{write_genome_fasta(genome_fa, contigs):.1f} s")
+    t0 = time.time()
+    pp_args = {"sw_full": phase_size_tools(device, idx, tools_reads,
+                                           size_first, genome_fa,
+                                           tools_tmp)}
+    log(f"size-tools: {time.time() - t0:.1f} s")
+    del idx, tools_reads, size_first
     cs_idx, cs_reads, cs_truth, cs_index_secs = size_cs_index(contigs)
-    launches_cs, size_cs_args, _ = phase_size_cs(
+    launches_cs, size_cs_args, _, cs_first_legacy = phase_size_cs(
         device, cs_idx, cs_reads, cs_truth, cs_index_secs)
     size_times.update(time_kernels_cs(size_cs_args))
     log("colour-space kernel times at 100 Mbp main-path shapes ("
@@ -2257,12 +2710,25 @@ def main() -> int:
         + device["smi"] + "): "
         + json.dumps(time_gapless(cs_gl_args, cs=True)))
     del cs_gl_args
+    t0 = time.time()
+    pp_args["sw_full_cs"] = phase_size_tools_cs(
+        device, cs_idx, cs_reads[:SIZE_CS_PLAIN], cs_first_legacy, genome_fa,
+        tools_tmp)
+    log(f"size-tools-cs: {time.time() - t0:.1f} s")
+    log("kernel times at prettyprint's largest 100 Mbp launches ("
+        + device["smi"] + "): "
+        + json.dumps({**time_kernels({"sw_full": pp_args["sw_full"]}),
+                      **time_kernels_cs(
+                          {"sw_full_cs": pp_args["sw_full_cs"]})}))
+    del pp_args
     launches.update(launches_cs)
     launches["sw_gapless"] = launches_gl["sw_gapless"]
     launches["candidates_device"] = launches_l3["candidates_device"]
     log("candidates_device launches: goldens-l3 "
         f"{l3_golden_launches['candidates_device']}, size-l3 "
         f"{launches['candidates_device']}")
+    log("prettyprint launches: goldens-tools "
+        + json.dumps(pp_golden_launches))
     log(f"total: {time.time() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [

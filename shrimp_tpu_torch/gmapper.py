@@ -6,23 +6,29 @@ letter space and colour space (`--mode cs`, or the program name
 (`-p`, `-1`/`-2`, `--paired-options`, the half-paired fallback):
 option parsing for the scoring, crossover, threshold, seed, window,
 strand, pairing, output and read-intake flags, the `--unpaired-options`
-rounds, the settings banner, the SAM header or the legacy SHRiMP format
-(`--shrimp-format`, `-R`), read intake with trimming and filtering, the
-pipelined `Mapper.map_stream` / `PairedMapper.map_pair_stream` loops, and
-the closing statistics block with the insert-size histogram (`-X`).  The
-option tables, usage text and logging are the JAX package's own.
+rounds, index save and load (`-S`/`-L` in this package's npz format or
+the reference's `.genome`/`.seed.N` projection, `--index-format`;
+`--save-mmap`/`--load-mmap` for raw arrays that mappers share through
+the page cache), the settings banner, the SAM header or the legacy SHRiMP
+format (`--shrimp-format`, `-R`, `-P` with its pretty blocks), read
+intake with trimming and filtering, the pipelined `Mapper.map_stream` /
+`PairedMapper.map_pair_stream` loops, and the closing statistics block
+with the insert-size histogram (`-X`).  The option tables, usage text and
+logging are the JAX package's own.
 
 Mapping runs on the first CUDA device (the kernels).  It runs on the CPU
 (their plain PyTorch versions) only when the caller passes `device="cpu"`
 or the environment sets `SHRIMP_TPU_TORCH_DEVICE=cpu`; without a CUDA
-device and without such a request it exits with rc 1.  Flags of paths not
-yet ported (index save/load, genome shards, the pretty print `-P`) exit
-with rc 1.
+device and without such a request it exits with rc 1.  The multi-device
+flags (`--genome-shards`, `--devices`) are not ported yet and exit with
+rc 1.
 
 Usage:
     python -m shrimp_tpu_torch.gmapper [options] reads.fq genome.fa
     python -m shrimp_tpu_torch.gmapper --mode cs [options] reads.csfq genome.fa
     python -m shrimp_tpu_torch.gmapper -p opp-in -I 0,500 pairs.fq genome.fa
+    python -m shrimp_tpu_torch.gmapper -S prefix genome.fa    (save an index)
+    python -m shrimp_tpu_torch.gmapper -L prefix reads.fq     (map on it)
 """
 
 from __future__ import annotations
@@ -258,13 +264,8 @@ def log(msg: str) -> None:
 
 
 # flag -> the path it belongs to; each exits with rc 1 for now
-_NOT_PORTED = {
-    **{o: "index save/load" for o in (
-        "-S", "--save", "-L", "--load", "--save-mmap", "--load-mmap",
-        "--index-format")},
-    **{o: "multi-device mapping" for o in ("--genome-shards", "--devices")},
-    **{o: "pretty print" for o in ("-P", "--pretty")},
-}
+_NOT_PORTED = {o: "multi-device mapping"
+               for o in ("--genome-shards", "--devices")}
 
 
 def main(argv: list[str] | None = None,
@@ -296,6 +297,7 @@ def main(argv: list[str] | None = None,
     from shrimp_tpu_torch import seeds as seedmod
     from shrimp_tpu_torch.io import fastx
     from shrimp_tpu_torch.io import legacy as legacy_mod
+    from shrimp_tpu_torch.io import refindex
     from shrimp_tpu_torch.ops.params import ScoreProbs, SWParams
     from shrimp_tpu_torch.pipeline import candidates_batch as cb
     from shrimp_tpu_torch.pipeline.options import (
@@ -347,6 +349,10 @@ def main(argv: list[str] | None = None,
     shrimp_format = False
     sam_r2 = False
     rflag = False
+    pflag = False
+    save_prefix = load_prefix = None
+    save_mmap_prefix = load_mmap_prefix = None
+    index_format = "npz"
     trim_illumina = False
     no_hash_filter_calls = False
     auto_trim_off = False
@@ -366,7 +372,8 @@ def main(argv: list[str] | None = None,
             "global": cfg.global_alignment,
             "trim_illumina": trim_illumina, "bfast": cfg.bfast,
             "Cflag": cfg.strand_mask == 2, "Fflag": cfg.strand_mask == 1,
-            "Eflag": not shrimp_format, "Qflag": True, "Rflag": rflag,
+            "Pflag": pflag, "Eflag": not shrimp_format, "Qflag": True,
+            "Rflag": rflag,
             "Tflag": cfg.rev_tiebreak, "Xflag": x_isize_hist,
             "Yflag": y_proj_hist,
             "hash_filter_calls": not no_hash_filter_calls,
@@ -394,6 +401,14 @@ def main(argv: list[str] | None = None,
                                   else -float(a))
         elif o in ("-a", "--anchor-width"):
             cfg.anchor_width = int(a)
+        elif o in ("-S", "--save"):
+            save_prefix = a
+        elif o in ("-L", "--load"):
+            load_prefix = a
+        elif o == "--save-mmap":
+            save_mmap_prefix = a
+        elif o == "--load-mmap":
+            load_mmap_prefix = a
         elif o in ("-z", "--cutoff"):
             cfg.list_cutoff = int(a)
         elif o in ("-m", "--match"):
@@ -475,6 +490,10 @@ def main(argv: list[str] | None = None,
             shrimp_format = True
         elif o in ("-R", "--print-reads"):
             rflag = True
+        elif o in ("-P", "--pretty"):
+            pflag = True
+            shrimp_format = True   # -P implies legacy output (Eflag=false,
+            #                        gmapper.c:1995-1997)
         elif o in ("-B", "--bfast"):
             if not colour:
                 log("error: --bfast is a colour-space option")
@@ -633,6 +652,11 @@ def main(argv: list[str] | None = None,
             sam_header_sections[o.rsplit("-", 1)[1]] = a
         elif o == "--sam-r2":
             sam_r2 = True
+        elif o == "--index-format":
+            if a not in ("npz", "ref", "both"):
+                log(f"error: invalid index format {a!r} (npz|ref|both)")
+                return 1
+            index_format = a
         elif o == "--no-autodetect-input":
             no_autodetect = True
         elif o in ("-?", "--help"):
@@ -645,7 +669,12 @@ def main(argv: list[str] | None = None,
         cfg.sam_read_group_name = read_group[0]
     cfg.sam_r2 = sam_r2
 
-    # SAM vs legacy output flag conflicts (gmapper.c:2466-2474)
+    # SAM vs legacy output flag conflicts (gmapper.c:2466-2474); like the
+    # reference this is order-dependent: -P implies legacy, a later -E
+    # re-enables SAM and collides
+    if not shrimp_format and pflag:
+        log("-E and -P are incompatable")
+        return 1
     if not shrimp_format and rflag:
         log("-E and -R are incompatable")
         return 1
@@ -702,8 +731,10 @@ def main(argv: list[str] | None = None,
         log(f"error: invalid match mode [pair_mode={pair_mode};"
             f"match_mode={mm}]")
         return 1
-    if mirna and seed_specs is None and not seed_weight:
-        # default mirna seed set only when none given (gmapper.c:2375-2379)
+    if mirna and seed_specs is None and not seed_weight \
+            and load_prefix is None and load_mmap_prefix is None:
+        # default mirna seed set only when none given and no index is
+        # loaded (gmapper.c:2375-2379)
         seed_specs = seedmod.MIRNA_SEEDS
 
     device = torch.device(device or os.environ.get("SHRIMP_TPU_TORCH_DEVICE")
@@ -730,26 +761,6 @@ def main(argv: list[str] | None = None,
         insert_bucket_size = telemetry.ceil_div(
             isize_max - isize_min + 1, 100)
         insert_histogram = [1] * 100          # +1 prior per bucket
-
-    # ----- index -----
-    t0 = time.time()
-    if len(positional) < (1 if (up_file or down_file) else 2):
-        # exact error + short usage (gmapper.c:2423-2436)
-        if up_file or down_file:
-            log("error: genome_file(s) not specified")
-        else:
-            log(f"error: {'reads_file, ' if not positional else ''}"
-                "genome_file(s) not specified")
-        usage(prog, mode, seed_strings=_usage_seeds(), state=_usage_state())
-        return 1
-    if up_file or down_file:
-        genome_files = positional
-        reads_files = []
-    else:
-        reads_files = positional[:1]
-        genome_files = positional[1:]
-    seed_set = seedmod.make_seed_set(seed_specs, weight=seed_weight,
-                                     use_hashing=use_hashing)
 
     def _print_paired_set_default(out):
         # default paired construction (gmapper.c:2634-2716)
@@ -803,48 +814,120 @@ def main(argv: list[str] | None = None,
             printers.append(p_unp)
         return printers
 
-    telemetry.print_settings(
-        log, seed_set=seed_set, num_threads=threads, chunk_size=chunk,
-        window_len=cfg.window_len,
-        hash_filter_calls=not no_hash_filter_calls,
-        anchor_width=cfg.anchor_width,
-        indel_taboo_len=cfg.indel_taboo_len,
-        list_cutoff=cfg.list_cutoff, def_list_cutoff=0xFFFFFFFF,
-        gapless=cfg.gapless, global_alignment=cfg.global_alignment,
-        use_regions=cfg.use_regions,
-        region_bits=cb.REGION_BITS, region_overlap=cb.REGION_OVERLAP,
-        qflag=bool(fastq), ignore_qvs=cfg.ignore_qvs,
-        min_avg_qv=min_avg_qv,
-        compute_mapping_qualities=cfg.compute_mapping_qualities,
-        all_contigs=cfg.all_contigs,
-        single_best_mapping=cfg.single_best_mapping,
-        colour_space=colour, params=cfg.params,
-        probs=ScoreProbs.from_scores(cfg.params, colour),
-        option_set_printers=_option_printers())
-    contigs = []
-    for gf in genome_files:
-        log(f"- Processing genome file [{gf}]")
-        for c in fastx.iter_contigs(gf):
-            log(f"- Processing contig {c.name}")
-            contigs.append(c)
-    # automatic list trimming for mapping jobs
-    # (cutoff := max(1000, 100*L/4^max_weight), gmapper.c:2809-2835)
-    if not auto_trim_off and cfg.list_cutoff == 0xFFFFFFFF:
-        total_len = sum(len(c.codes) for c in contigs)
-        max_w = (12 if use_hashing
-                 else max(s.weight for s in seed_set.seeds))
-        cfg.list_cutoff = max(1000, (100 * total_len) // (4 ** max_w))
-    idx = gindex.build_index(contigs, seed_set, colour_space=colour)
-    if cfg.list_cutoff != 0xFFFFFFFF:
-        idx.trim(cfg.list_cutoff)
-    log("Loaded Genome")     # exact text (genome.c:1180)
+    # ----- index: loaded (-L, --load-mmap) or built from the genome -----
+    t0 = time.time()
+    if load_mmap_prefix is not None or load_prefix is not None:
+        if load_mmap_prefix is not None:
+            idx = gindex.GenomeIndex.load_mmap(load_mmap_prefix)
+        elif os.path.exists(load_prefix + ".idx.npz"):
+            idx = gindex.GenomeIndex.load(load_prefix)
+        elif refindex.is_reference_index(load_prefix):
+            # reference-format projection (.genome/.seed.N from the
+            # reference's gmapper -S / project-db.py)
+            idx = refindex.load(load_prefix)
+        else:
+            log(f"error: no index found under prefix [{load_prefix}]")
+            return 1
+        if idx.colour_space != colour:
+            log("error: index space does not match mapper mode")
+            return 1
+        if load_mmap_prefix is not None:
+            log(f"Attached shared index [{load_mmap_prefix}] "
+                f"({time.time() - t0:.1f}s)")
+        seed_set = idx.seed_set
+        reads_files = positional
+    else:
+        if save_prefix is not None or save_mmap_prefix is not None:
+            # saving only: every positional is a genome file, no reads
+            genome_files = positional
+            reads_files = []
+        else:
+            if len(positional) < (1 if (up_file or down_file) else 2):
+                # exact error + short usage (gmapper.c:2423-2436)
+                if up_file or down_file:
+                    log("error: genome_file(s) not specified")
+                else:
+                    log(f"error: {'reads_file, ' if not positional else ''}"
+                        "genome_file(s) not specified")
+                usage(prog, mode, seed_strings=_usage_seeds(),
+                      state=_usage_state())
+                return 1
+            if up_file or down_file:
+                genome_files = positional
+                reads_files = []
+            else:
+                reads_files = positional[:1]
+                genome_files = positional[1:]
+        seed_set = seedmod.make_seed_set(seed_specs, weight=seed_weight,
+                                         use_hashing=use_hashing)
+
+        # settings echo (print_settings, gmapper.c:1348-1443; printed only
+        # when not loading a projection, :2719-2721)
+        telemetry.print_settings(
+            log, seed_set=seed_set, num_threads=threads, chunk_size=chunk,
+            window_len=cfg.window_len,
+            hash_filter_calls=not no_hash_filter_calls,
+            anchor_width=cfg.anchor_width,
+            indel_taboo_len=cfg.indel_taboo_len,
+            list_cutoff=cfg.list_cutoff, def_list_cutoff=0xFFFFFFFF,
+            gapless=cfg.gapless, global_alignment=cfg.global_alignment,
+            use_regions=cfg.use_regions,
+            region_bits=cb.REGION_BITS, region_overlap=cb.REGION_OVERLAP,
+            qflag=bool(fastq), ignore_qvs=cfg.ignore_qvs,
+            min_avg_qv=min_avg_qv,
+            compute_mapping_qualities=cfg.compute_mapping_qualities,
+            all_contigs=cfg.all_contigs,
+            single_best_mapping=cfg.single_best_mapping,
+            colour_space=colour, params=cfg.params,
+            probs=ScoreProbs.from_scores(cfg.params, colour),
+            option_set_printers=_option_printers())
+        contigs = []
+        for gf in genome_files:
+            log(f"- Processing genome file [{gf}]")
+            for c in fastx.iter_contigs(gf):
+                log(f"- Processing contig {c.name}")
+                contigs.append(c)
+        # automatic list trimming for mapping jobs
+        # (cutoff := max(1000, 100*L/4^max_weight), gmapper.c:2809-2835)
+        # (none when saving: the projection keeps every list)
+        if not auto_trim_off and save_prefix is None and \
+                save_mmap_prefix is None and cfg.list_cutoff == 0xFFFFFFFF:
+            total_len = sum(len(c.codes) for c in contigs)
+            max_w = (12 if use_hashing
+                     else max(s.weight for s in seed_set.seeds))
+            cfg.list_cutoff = max(1000, (100 * total_len) // (4 ** max_w))
+        idx = gindex.build_index(contigs, seed_set, colour_space=colour)
+        if cfg.list_cutoff != 0xFFFFFFFF:
+            idx.trim(cfg.list_cutoff)
+        log("Loaded Genome")     # exact text (genome.c:1180)
     load_genome_secs = time.time() - t0
     if y_proj_hist:
         telemetry.print_genomemap_stats(log, idx)
 
+    if save_mmap_prefix is not None:
+        idx.save_mmap(save_mmap_prefix)
+        log(f"Saved shared-memory index under [{save_mmap_prefix}] "
+            f"(use --load-mmap; put the prefix in /dev/shm for "
+            f"cross-process residency)")
+        return 0
+    if save_prefix is not None:
+        if index_format in ("npz", "both"):
+            idx.save(save_prefix)
+        if index_format in ("ref", "both"):
+            # reference .genome/.seed.N projection files, loadable by the
+            # reference binary (genome.c:179-273) and by -L here
+            refindex.save(idx, save_prefix)
+        log(f"Saved genome projection under [{save_prefix}]")
+        return 0
+
     # ----- read input -----
-    if (up_file or down_file) and not (up_file and down_file):
-        log("error: need both -1 and -2 for split pair files")
+    if up_file or down_file:
+        if not (up_file and down_file):
+            log("error: need both -1 and -2 for split pair files")
+            return 1
+    elif not reads_files:
+        log("error: read_file not specified")
+        usage(prog, mode, seed_strings=_usage_seeds(), state=_usage_state())
         return 1
     # reads-file open notes, in the reference's order (fasta.c:113-121,
     # gmapper.c:2871-2902); only the single/-1 file is opened with
@@ -1080,7 +1163,8 @@ def main(argv: list[str] | None = None,
             elif un_file:
                 un_recs.append(re_e)
             if shrimp_format:
-                for line in mapper.legacy_records(re_e, hits, rflag):
+                for line in mapper.legacy_records(re_e, hits, rflag,
+                                                  pretty=pflag):
                     out.write(line + "\n")
             else:
                 for rec in mapper.sam_records(re_e, hits):

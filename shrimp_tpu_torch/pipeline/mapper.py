@@ -1375,17 +1375,38 @@ class Mapper:
             genome_len=int(self.index.contig_len[fh.cn]),
             revcmpl=fh.gen_st == 1, read_seq=read_seq)
 
+    def legacy_pretty_block(self, re: cand.ReadEntry, fh: FinalHit) -> str:
+        """output_pretty block for one hit (hit_output Pflag branch)."""
+        from shrimp_tpu_torch.io import legacy
+        dbal, qral = self.render_hit_alignment(re, fh)
+        plane = self.genome_rc if fh.gen_st == 1 else self.index.genome
+        lo = int(self.index.contig_offsets[fh.cn])
+        clen = int(self.index.contig_len[fh.cn])
+        return legacy.output_pretty(
+            genome_plane=plane[lo:lo + clen], genome_len=clen,
+            genome_start0=fh.g_off + fh.genome_start, gmapped=fh.gmapped,
+            read_start0=fh.read_start, rmapped=fh.rmapped,
+            read_len=re.read_len, dbalign=dbal, qralign=qral,
+            revcmpl=fh.gen_st == 1, colour_space=self.cfg.colour_space,
+            read_text_cs=re.seq if self.cfg.colour_space else None)
+
     def legacy_records(self, re: cand.ReadEntry, hits: list[FinalHit],
-                       include_read: bool = False) -> list[str]:
-        """Legacy-format lines for one read (`-P`, the pretty blocks, is
-        not ported)."""
+                       include_read: bool = False,
+                       pretty: bool = False) -> list[str]:
+        """Legacy-format lines for one read; with `pretty` (`-P`) each
+        hit's line is followed by its pretty block."""
         if not hits:
             return [f">{re.name}"] if self.cfg.sam_unaligned else []
         sel = hits
         if self.cfg.single_best_mapping and self.cfg.compute_mapping_qualities:
             best = max(range(len(hits)), key=lambda i: hits[i].mqv)
             sel = [hits[best]]
-        return [self.legacy_record(re, fh, include_read) for fh in sel]
+        out = []
+        for fh in sel:
+            out.append(self.legacy_record(re, fh, include_read))
+            if pretty:
+                out.append(self.legacy_pretty_block(re, fh))
+        return out
 
     # ------------------------------------------------------------------
     def _append_tail_tags(self, rec, re_e, fh, mate_re=None) -> None:

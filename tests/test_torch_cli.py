@@ -52,9 +52,7 @@ def test_read_group_and_extra_fields():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--load-mmap", "prefix"], ["--index-format", "ref"],
-    ["-S", "prefix"], ["-L", "prefix"], ["--genome-shards", "2"],
-    ["-P"], ["--devices", "2"],
+    ["--genome-shards", "2"], ["--devices", "2"],
 ], ids=lambda f: f[0])
 def test_flags_outside_the_slice_exit_1(flags):
     rc, out, err = run(flags + ["reads.fq", "genome.fa"])

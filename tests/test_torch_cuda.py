@@ -832,6 +832,55 @@ def test_paired_goldens_through_the_kernels(cuda_device, case, tmp_path):
     assert p1.value > before[0] and p2.value > before[1]
 
 
+def _run_main(main, argv, device):
+    import contextlib
+    import io
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = main(argv, device=device)
+    return rc, so.getvalue(), se.getvalue()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space", ["ls", "cs"])
+def test_prettyprint_on_the_card_equals_plain(cuda_device, space):
+    """prettyprint's re-alignments on K3+K4 / K7+K8 at the full band:
+    output and warnings equal to its plain run on the CPU, and the
+    reference's golden."""
+    from shrimp_tpu_torch.tools import prettyprint
+    legacy_file, reads, gold = {
+        "ls": ("legacy_tiny.out", "mini_reads.fa",
+               "golden_prettyprint_ls.out"),
+        "cs": ("legacy_cs_tiny.out", "mini_reads_cs.fa",
+               "golden_prettyprint_cs.out")}[space]
+    argv = (["prettyprint"] + (["--mode", "cs"] if space == "cs" else [])
+            + [os.path.join(GOLDEN, legacy_file),
+               os.path.join(GOLDEN, "golden_genome.fa"),
+               os.path.join(GOLDEN, reads)])
+    counter = tcs.LAUNCHES if space == "cs" else tsf.LAUNCHES
+    before = counter.value
+    card = _run_main(prettyprint.main, argv, cuda_device)
+    assert counter.value > before
+    assert card == _run_main(prettyprint.main, argv, "cpu")
+    assert card[0] == 0, card[2]
+    with open(os.path.join(GOLDEN, gold)) as fh:
+        assert card[1] == fh.read()
+
+
+@pytest.mark.cuda
+def test_reference_projection_maps_on_the_card(cuda_device):
+    """gmapper -L on the reference binary's projection, on the card."""
+    before = (tsv.LAUNCHES.value, tsf.LAUNCHES.value)
+    rc, out, err = _run_main(gmapper.main, [
+        "gmapper", "-L", os.path.join(GOLDEN, "refproj"), "-Q",
+        os.path.join(GOLDEN, "golden_reads.fq")], "cuda")
+    assert rc == 0, err[-2000:]
+    assert "PyTorch port on cuda" in err
+    assert golden_cli.compared(out, "golden_unpaired.sam") == \
+        golden_cli.expected("golden_unpaired.sam")
+    assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
+
+
 def test_build_failure_raises(tmp_path, monkeypatch):
     """A compiler error is raised with its output; nothing falls back."""
     fake = tmp_path / "nvcc"

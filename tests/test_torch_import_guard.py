@@ -91,6 +91,10 @@ import shrimp_tpu_torch.pipeline.mapper
 import shrimp_tpu_torch.pipeline.paired
 import shrimp_tpu_torch.utils.golden_cli
 import shrimp_tpu_torch.utils.synth
+import shrimp_tpu_torch.io.refindex
+from shrimp_tpu_torch.tools import (fasta2fastq, mergesam, prettyprint,
+                                    probcalc, probcalc_mp, shrimp2sam,
+                                    shrimp_var, splitdb, splitreads, utils)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu", "bench",
                                     "bench_grid"))
@@ -101,8 +105,8 @@ print("clean")
 
 def test_entry_points_load_no_jax_package():
     """In a fresh process where jax is installed and importable, the
-    port's entry points load no jax module and no module of the JAX
-    package (whose `__init__` imports jax)."""
+    port's entry points (the CLI and the tools) load no jax module and no
+    module of the JAX package (whose `__init__` imports jax)."""
     import jax  # noqa: F401  (the check means something only with jax here)
     r = subprocess.run([sys.executable, "-c", _PROGRAM_IMPORTS], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
@@ -115,8 +119,9 @@ def _port_sources():
     for root, _, names in os.walk(os.path.join(REPO, "shrimp_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 25
-    assert os.path.join(REPO, "shrimp_tpu_torch", "pipeline",
-                        "paired.py") in files
+    for part in (("pipeline", "paired.py"), ("io", "refindex.py"),
+                 ("tools", "prettyprint.py"), ("tools", "mergesam.py")):
+        assert os.path.join(REPO, "shrimp_tpu_torch", *part) in files
     return files
 
 
