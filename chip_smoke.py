@@ -130,6 +130,32 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               posterior's), the first 256 records as in (b); both kernels
               timed against their plain versions at prettyprint's largest
               launch
+ 16. goldens-shards  (after phase 14) the multi-device forms at golden
+              size on the card: the CLI's four --genome-shards 2 goldens
+              of both spaces, unpaired and paired, and --genome-shards 4
+              --devices 1; parallel/multihost.py as two ranks of a gloo
+              group on this card (unpaired, paired, --genome-shards 2 a
+              rank) and with --genome-axis (unpaired, paired, colour
+              space), each rank its own process, all started together;
+              one --genome-axis rank with --backend nccl (NCCL's set-up
+              and its float64 all-gather on the card); every SAM equal to
+              its golden outside the header; sharded_pass1_step /
+              sharded_map_step at the JAX dry run's shapes against the
+              plain versions (top and stats exact, z1 within rtol 1e-6);
+              this process's K1, K2-CS, K3+K4 and K7+K8 launches
+ 17. size-shards  (after phase 15's letter-space part) the size contigs
+              in 4 genome shards (split_index_shards, each trimmed at the
+              whole genome's cutoff), all on this card: (a) MeshMapper on
+              the size phase's first 8,192 reads in batches of 2,048, host
+              candidates; (b) MeshPairedMapper on size-paired's first
+              1,024 pairs; the first 256 reads and 128 pairs through the
+              same meshes on the plain versions give equal SAM, and K1
+              and K3+K4 equal their plain versions at (a)'s largest
+              launches; reads/s, stage seconds summed over the shards,
+              peak and resident device memory, launches per batch, the
+              kernel times, the SAM digests, and how many SAM lines equal
+              the single-index size phase's (a diagnostic: a k-mer over
+              the cutoff in the whole genome can be under it in a shard)
 
 Each timing line gives a kernel's `ms` (CUDA events around 20 calls of
 its wrapper: where a kernel's device time is below its wrapper's host
@@ -180,6 +206,13 @@ SIZE_PAIR_BATCH = 1_024
 SIZE_PROFILE_PAIRS = 2_048
 # size-tools: prettyprint's records held to its plain run
 SIZE_TOOLS_PLAIN = 256
+# size-shards: the genome shards, the size reads and size-paired pairs it
+# maps, and those held to the plain versions
+SIZE_SHARDS = 4
+SIZE_SHARD_READS = 8_192
+SIZE_SHARD_PAIRS = 1_024
+SIZE_SHARD_PLAIN_READS = 256
+SIZE_SHARD_PLAIN_PAIRS = 128
 
 KERNELS = {
     "sw_vector": {"source": "shrimp_tpu_torch/csrc/sw_vector.cu",
@@ -349,13 +382,20 @@ def _band_bound(name, read_rows, bxmin, bxmax, ins, outs) -> dict:
 
 def profile_map(mapper, reads: list, batch: int) -> dict:
     """One warm map_stream of `reads` (a PairedMapper: map_pair_stream of
-    read pairs) under torch.profiler (CPU and CUDA activities): wall
-    seconds, device busy time (every kernel and copy on the card), the
-    idle share, and the device time by kernel name."""
+    read pairs; a MeshMapper: map_batch a batch at a time) under
+    torch.profiler (CPU and CUDA activities): wall seconds, device busy
+    time (every kernel and copy on the card), the idle share, and the
+    device time by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    stream = getattr(mapper, "map_pair_stream", mapper.map_stream)
+    stream = getattr(mapper, "map_pair_stream",
+                     getattr(mapper, "map_stream", None))
+    if stream is None:
+        def stream(it, n):
+            rows = list(it)
+            for i in range(0, len(rows), n):
+                yield mapper.map_batch(rows[i:i + n])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -769,11 +809,12 @@ def _first_difference(a: list, b: list) -> int:
 
 
 def phase_size(device: dict, idx, reads, truth,
-               index_secs: float) -> tuple[dict, dict, dict, list, list]:
+               index_secs: float) -> tuple:
     """The main path at 100 Mbp with host candidates: map, count
     launches, check quality, and check the first batch against the plain
     versions.  Returns the launches, the recorded largest calls, the
-    stats, the SAM lines and those of the first batch."""
+    stats, the SAM lines, those of the first batch, and those of each of
+    the first SIZE_SHARD_READS reads."""
     import torch
 
     from shrimp_tpu_torch.ops import sw_full, sw_vector
@@ -837,7 +878,8 @@ def phase_size(device: dict, idx, reads, truth,
     log("size: profile " + json.dumps(
         profile_map(mapper, reads[:SIZE_PROFILE_READS], SIZE_BATCH)))
     return launches, {"sw_vector": rec1.args, "sw_full": rec2.args}, \
-        stats, lines, first
+        stats, lines, first, _per_read_lines(mapper,
+                                             results[:SIZE_SHARD_READS])
 
 
 def _cpu(args) -> list:
@@ -1370,7 +1412,8 @@ def phase_size_paired(device: dict, idx) -> tuple[dict, dict]:
     PairedConfig(opp-in, 50, 600), host candidates, map_pair_stream in
     batches of 1,024 pairs after one warm batch; twice, the SAM equal;
     quality as the grid bench counts it; a profiled warm run.  Returns
-    the stats and the largest K1 and K3+K4 launches."""
+    the stats, the largest K1 and K3+K4 launches and the first
+    SIZE_SHARD_PAIRS pairs."""
     import torch
 
     from shrimp_tpu_torch.ops import sw_full, sw_vector
@@ -1476,7 +1519,8 @@ def phase_size_paired(device: dict, idx) -> tuple[dict, dict]:
     stats["profile"] = profile_map(pm, pairs[:SIZE_PROFILE_PAIRS],
                                    SIZE_PAIR_BATCH)
     log("size-paired: " + json.dumps(stats))
-    return stats, {"sw_vector": rec1.args, "sw_full": rec2.args}
+    return stats, {"sw_vector": rec1.args, "sw_full": rec2.args}, \
+        pairs[:SIZE_SHARD_PAIRS]
 
 
 def size_cs_index(contigs: list):
@@ -2615,6 +2659,328 @@ def phase_size_tools_cs(device: dict, idx, reads: list, first_legacy: list,
     return args
 
 
+# ---------------------------------------------------------------------------
+# multi-device: genome shards in one process, ranks of a process group
+SHARD_GOLDENS = {
+    # tests/test_cli.py:93-131, and four shards on one device
+    "unpaired": (["-Q", "--genome-shards", "2"], "golden_reads.fq",
+                 "golden_unpaired.sam"),
+    "paired": (["-Q", "-p", "opp-in", "--genome-shards", "2"],
+               "golden_pairs.fq", "golden_paired.sam"),
+    "cs": (["--mode", "cs", "-Q", "--genome-shards", "2"],
+           "golden_reads_cs.fq", "golden_cs.sam"),
+    "cs_paired": (["--mode", "cs", "-Q", "-p", "opp-in", "--genome-shards",
+                   "2"], "pairs_cs_opp-in.fq", "golden_cs_opp-in.sam"),
+    "four_shards_one_device": (["-Q", "--genome-shards", "4", "--devices",
+                                "1"], "golden_reads.fq",
+                               "golden_unpaired.sam"),
+}
+# (runner flags, gmapper flags, reads, golden, ranks): the cases of
+# tests/test_multihost.py and tests/test_genome_axis.py, two ranks of a
+# gloo group on one card, then one nccl rank
+RANK_GOLDENS = {
+    "multihost unpaired": (["--block", "50", "--backend", "gloo"], ["-Q"],
+                           "golden_reads.fq", "golden_unpaired.sam", 2),
+    "multihost paired": (["--block", "20", "--backend", "gloo"],
+                         ["-Q", "-p", "opp-in"], "golden_pairs.fq",
+                         "golden_paired.sam", 2),
+    "multihost --genome-shards 2": (["--block", "50", "--backend", "gloo"],
+                                    ["-Q", "--genome-shards", "2"],
+                                    "golden_reads.fq",
+                                    "golden_unpaired.sam", 2),
+    "genome-axis unpaired": (["--genome-axis", "--backend", "gloo"], ["-Q"],
+                             "golden_reads.fq", "golden_unpaired.sam", 2),
+    "genome-axis paired": (["--genome-axis", "--backend", "gloo"],
+                           ["-Q", "-p", "opp-in", "-I", "0,500"],
+                           "golden_pairs.fq", "golden_paired.sam", 2),
+    "genome-axis cs": (["--genome-axis", "--backend", "gloo"],
+                       ["-Q", "--mode", "cs"],
+                       "golden_reads_cs.fq", "golden_cs.sam", 2),
+    "genome-axis nccl, one rank": (["--genome-axis", "--backend", "nccl"],
+                                   ["-Q"], "golden_reads.fq",
+                                   "golden_unpaired.sam", 1),
+}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(tmpdir: str, name: str, case: tuple) -> list:
+    """`python -m shrimp_tpu_torch.parallel.multihost` as the case's
+    ranks on this card, each writing its stderr to a file."""
+    runner, flags, reads, _, n = case
+    out = os.path.join(tmpdir, name.replace(" ", "_") + ".sam")
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = []
+    for rank in range(n):
+        err = open(f"{out}.err{rank}", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "shrimp_tpu_torch.parallel.multihost",
+             "--coordinator", coord, "--num-processes", str(n),
+             "--process-id", str(rank), "--out", out, *runner, "--", *flags,
+             os.path.join(GOLDEN, reads),
+             os.path.join(GOLDEN, "golden_genome.fa")],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=err), err))
+    return [out, procs]
+
+
+def _finish_ranks(name: str, case: tuple, run: list) -> None:
+    out, procs = run
+    for rank, (p, err) in enumerate(procs):
+        rc = p.wait(timeout=600)
+        err.close()
+        if rc != 0:
+            with open(f"{out}.err{rank}") as fh:
+                raise AssertionError(f"{name}: rank {rank} rc {rc}\n"
+                                     + fh.read()[-2000:])
+    with open(out) as fh:
+        got = [ln.rstrip("\n") for ln in fh if not ln.startswith("@")]
+    if got != _golden_body(case[3]):
+        raise AssertionError(f"{name}: SAM differs from {case[3]}")
+
+
+def sharded_steps_on_card() -> dict:
+    """sharded_pass1_step / sharded_map_step at the JAX dry run's shapes
+    (__graft_entry__.py: B 16, S 2, G 64, R 32, k 4, seed 1) on the card
+    against the same steps on the CPU plain versions: top and stats
+    exact, z1 within rtol 1e-6."""
+    import torch
+
+    from shrimp_tpu_torch.parallel import shard
+    rng = np.random.default_rng(1)
+    windows = rng.integers(0, 4, size=(16, 2, 64)).astype(np.int8)
+    reads = rng.integers(0, 4, size=(16, 1, 32)).astype(np.int8)
+    card = shard.make_mesh(2, genome_shards=2, devices=["cuda:0"])
+    cpu = shard.make_mesh(2, genome_shards=2, devices=["cpu"])
+    out = {}
+    for name, build, kw in (("sharded_pass1_step", shard.sharded_pass1_step,
+                             {"k": 4}),
+                            ("sharded_map_step", shard.sharded_map_step, {})):
+        got, z1 = build(card, **kw)(windows, reads)
+        want, z1_p = build(cpu, **kw)(windows, reads)
+        err = max_abs_err(got, want)
+        z1_rel = float(((z1.double() - z1_p.double()).abs()
+                        / z1_p.double().abs()).max())
+        if err or z1_rel > 1e-6:
+            raise AssertionError(f"{name}: max_abs_err {err}, z1 rel "
+                                 f"{z1_rel}")
+        out[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "z1_max_rel_err": z1_rel}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_goldens_shards() -> dict:
+    """The multi-device forms at golden size on the card: the CLI's
+    --genome-shards goldens (four shards on one device among them), the
+    multi-process runner's read-sharded and genome-axis cases as ranks of
+    a gloo group on this card (each rank its own process, all started
+    together), a genome-axis run of one nccl rank (NCCL's set-up and its
+    float64 all-gather on the card), and the sharded steps against their
+    plain versions.  Every SAM equals its golden outside the header.
+    Returns this process's launches."""
+    import tempfile
+
+    import torch
+
+    from shrimp_tpu_torch import gmapper
+    t_all = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        try:
+            for name, case in RANK_GOLDENS.items():
+                runs[name] = _start_ranks(d, name, case)
+            reset_launches()
+            for name, (flags, reads, gold) in SHARD_GOLDENS.items():
+                t0 = time.time()
+                rc, out, err = run_main(gmapper.main, [
+                    "gmapper", *flags, os.path.join(GOLDEN, reads),
+                    os.path.join(GOLDEN, "golden_genome.fa")])
+                if rc != 0 or "PyTorch port on cuda" not in err:
+                    raise AssertionError(f"goldens-shards {name}: rc {rc}\n"
+                                         + err[-2000:])
+                if _records(out) != _golden_body(gold):
+                    raise AssertionError(f"goldens-shards {name}: SAM "
+                                         f"differs from {gold}")
+                log(f"goldens-shards: {' '.join(flags)} -> {gold} "
+                    f"({time.time() - t0:.1f} s)")
+            steps = sharded_steps_on_card()
+            torch.cuda.synchronize()
+            launches = read_launches(("sw_vector", "sw_vector_cs",
+                                      "sw_full", "sw_full_cs"))
+            log("goldens-shards: sharded steps on the card equal their "
+                "plain versions " + json.dumps(steps))
+            t0 = time.time()
+            for name, case in RANK_GOLDENS.items():
+                _finish_ranks(name, case, runs.pop(name))
+                log(f"goldens-shards: {name} ({case[4]} rank(s), "
+                    f"{' '.join(case[0] + case[1])}) -> {case[3]}")
+            log(f"goldens-shards: ranks done {time.time() - t0:.1f} s "
+                "after the in-process cases")
+        finally:
+            for _, procs in runs.values():
+                for p, err in procs:
+                    p.kill()
+                    p.wait()
+                    err.close()
+    log("goldens-shards: launches " + json.dumps(launches)
+        + f" ({time.time() - t_all:.1f} s)")
+    return launches
+
+
+def _per_read_lines(mapper, results) -> list:
+    return [[rec.line() for rec in mapper.sam_records(e, h)]
+            for e, h in results]
+
+
+def phase_size_shards(device: dict, contigs: list, reads: list,
+                      single_lines: list, pairs: list) -> dict:
+    """The in-process genome mesh at 100 Mbp on one card: the size
+    contigs binned into SIZE_SHARDS shards by split_index_shards, each
+    trimmed at the whole genome's cutoff as the CLI does; (a) MeshMapper
+    on the size phase's first SIZE_SHARD_READS reads in batches of
+    SIZE_BATCH, host candidates; (b) MeshPairedMapper on size-paired's
+    first SIZE_SHARD_PAIRS pairs.  Gates: the first reads and pairs of
+    each through the same mesh on the CPU plain versions give equal SAM,
+    and K1 and K3+K4 equal their plain versions at (a)'s largest
+    launches.  Reports reads/s, stage seconds summed over the shards,
+    peak and resident device memory, launches per batch, the kernel
+    times, and how many SAM lines equal the single-index size phase's for
+    the same reads (a diagnostic: a k-mer over the cutoff in the whole
+    genome can be under it in one shard, so repeat reads may map
+    differently, in the JAX package too)."""
+    import torch
+
+    from shrimp_tpu_torch import seeds as seedmod
+    from shrimp_tpu_torch.ops import sw_full, sw_vector
+    from shrimp_tpu_torch.parallel import mesh, shard
+    from shrimp_tpu_torch.pipeline.options import MapperConfig
+    from shrimp_tpu_torch.pipeline.paired import PAIR_OPP_IN, PairedConfig
+    t_all = time.time()
+    seed_set = seedmod.make_seed_set(None)
+    t0 = time.time()
+    shards = mesh.split_index_shards(contigs, SIZE_SHARDS, seed_set)
+    total = sum(len(c.codes) for c in contigs)
+    max_w = max(s.weight for s in seed_set.seeds)
+    cutoff = max(1000, (100 * total) // (4 ** max_w))
+    for si in shards:
+        si.trim(cutoff)
+    build_secs = time.time() - t0
+    card = shard.make_mesh(SIZE_SHARDS, SIZE_SHARDS, devices=["cuda:0"])
+    cpu = shard.make_mesh(SIZE_SHARDS, SIZE_SHARDS, devices=["cpu"])
+
+    def cfg():
+        return MapperConfig(qual_delta=64, device_candidates=False)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    mm = mesh.MeshMapper(shards, cfg(), mesh=card)
+    torch.cuda.synchronize()
+    resident = [sum(int(t.numel() * t.element_size()) for t in (
+        m.dev_index.plane, m.dev_index.contig_offsets,
+        m.dev_index.contig_lens, m.dev_index.cs_cat, m.dev_index.ls_cat)
+        if t is not None) for m in mm.mappers]
+    rec1 = Recorder(sw_vector, "p1_gather_score_ls_cuda",
+                    lambda a: a[1].shape[0])
+    rec2 = Recorder(sw_full, "sw_full_and_traceback_packed_cuda",
+                    lambda a: a[0].shape[0])
+    batches = [reads[i:i + SIZE_BATCH]
+               for i in range(0, len(reads), SIZE_BATCH)]
+    reset_launches()
+    with rec1, rec2:
+        t0 = time.time()
+        results = [r for b in batches for r in mm.map_batch(b)]
+        torch.cuda.synchronize()
+        map_secs = time.time() - t0
+    launches = read_launches(("sw_vector", "sw_full"))
+    peak = torch.cuda.max_memory_allocated()
+    got = _per_read_lines(mm, results)
+    flat = [ln for lines in got for ln in lines]
+    same_lines = sum(len(set(a) & set(b)) for a, b in zip(got, single_lines))
+    same_reads = sum(a == b for a, b in zip(got, single_lines))
+    tel = mm.tel
+    stats_a = {
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "genome_bp": int(total), "shards": SIZE_SHARDS,
+        "shard_bp": [int(s.total_len) for s in shards],
+        "shard_build_secs": round(build_secs, 3), "list_cutoff": cutoff,
+        "reads": len(reads), "map_secs": round(map_secs, 3),
+        "reads_per_sec": round(len(reads) / map_secs, 1),
+        "stage_secs_summed_over_shards": {
+            k: round(v.secs, 3) for k, v in tel.stages.items() if v.secs},
+        "launches": launches,
+        "launches_per_batch": {k: v / len(batches)
+                               for k, v in launches.items()},
+        "max_memory_allocated": int(peak),
+        "resident_bytes_per_shard": resident,
+        "mesh_construction_bytes": int(torch.cuda.memory_allocated()
+                                       - before),
+        **sam_digest(flat),
+        # diagnostic, not a gate: shard-local list trimming
+        "lines_equal_single_index": same_lines,
+        "lines_single_index": sum(len(b) for b in single_lines),
+        "reads_equal_single_index": same_reads,
+    }
+    stats_a["profile"] = profile_map(mm, reads[:2 * SIZE_BATCH], SIZE_BATCH)
+    log("size-shards (a): " + json.dumps(stats_a))
+    plain = mesh.MeshMapper(shards, cfg(), mesh=cpu)
+    t0 = time.time()
+    want = _per_read_lines(plain, plain.map_batch(
+        reads[:SIZE_SHARD_PLAIN_READS]))
+    if want != got[:SIZE_SHARD_PLAIN_READS]:
+        raise AssertionError("size-shards (a): the plain versions disagree "
+                             "at read " + str(_first_difference(
+                                 want, got[:SIZE_SHARD_PLAIN_READS])))
+    log(f"size-shards (a): first {SIZE_SHARD_PLAIN_READS} reads identical "
+        f"through the plain versions ({time.time() - t0:.1f} s)")
+    del plain, mm, results
+    rows = time_kernels({"sw_vector": rec1.args, "sw_full": rec2.args}, 5)
+    log("size-shards (a): kernels at the largest launches, against their "
+        "plain versions (" + device["smi"] + "): " + json.dumps(rows))
+
+    pcfg = PairedConfig(pair_mode=PAIR_OPP_IN, min_insert_size=50,
+                        max_insert_size=600)
+    torch.cuda.reset_peak_memory_stats()
+    pm = mesh.MeshPairedMapper(shards, cfg(), pcfg, mesh=card)
+    reset_launches()
+    t0 = time.time()
+    res = pm.map_pair_batch(pairs)
+    torch.cuda.synchronize()
+    pair_secs = time.time() - t0
+    p_launches = read_launches(("sw_vector", "sw_full"))
+    p_lines = [[r.line() for r in pm.sam_records_pair(*t)] for t in res]
+    plain = mesh.MeshPairedMapper(shards, cfg(), pcfg, mesh=cpu)
+    t0 = time.time()
+    p_want = [[r.line() for r in plain.sam_records_pair(*t)]
+              for t in plain.map_pair_batch(pairs[:SIZE_SHARD_PLAIN_PAIRS])]
+    if p_want != p_lines[:SIZE_SHARD_PLAIN_PAIRS]:
+        raise AssertionError("size-shards (b): the plain versions disagree "
+                             "at pair " + str(_first_difference(
+                                 p_want, p_lines[:SIZE_SHARD_PLAIN_PAIRS])))
+    stats_b = {
+        "card": device["name"], "nvidia_smi": device["smi"],
+        "pairs": len(pairs), "map_secs": round(pair_secs, 3),
+        "reads_per_sec": round(2 * len(pairs) / pair_secs, 1),
+        "pairs_matched_frac": round(sum(bool(pr.paired_hits)
+                                        for pr, _, _ in res) / len(res), 4),
+        "stage_secs_summed_over_shards": {
+            k: round(v.secs, 3) for k, v in pm.tel.stages.items() if v.secs},
+        "launches": p_launches,
+        "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
+        **sam_digest([ln for lines in p_lines for ln in lines]),
+        "plain_pairs_equal": SIZE_SHARD_PLAIN_PAIRS,
+        "plain_secs": round(time.time() - t0, 3)}
+    log("size-shards (b): " + json.dumps(stats_b))
+    log(f"size-shards: {time.time() - t_all:.1f} s")
+    return {"sw_vector": launches["sw_vector"] + p_launches["sw_vector"],
+            "sw_full": launches["sw_full"] + p_launches["sw_full"]}
+
+
 def golden_worker(names: list[str]) -> int:
     """`chip_smoke.py --golden-worker NAME...`: the named goldens of
     utils/golden_cli.py through the CLI on the card (phase_goldens_paired
@@ -2658,10 +3024,11 @@ def main() -> int:
     l3_golden_launches = phase_goldens_l3()
     phase_goldens_paired()
     pp_golden_launches = phase_goldens_tools()
+    shard_golden_launches = phase_goldens_shards()
     contigs, gen_secs = size_contigs()
     idx, reads, truth, index_secs = size_index(contigs, gen_secs)
-    launches, size_args, size_stats, size_lines, size_first = phase_size(
-        device, idx, reads, truth, index_secs)
+    (launches, size_args, size_stats, size_lines, size_first,
+     shard_single) = phase_size(device, idx, reads, truth, index_secs)
     size_times = time_kernels(size_args)
     log("kernel times at 100 Mbp main-path shapes (" + device["smi"]
         + "): " + json.dumps(size_times))
@@ -2679,8 +3046,9 @@ def main() -> int:
     log("sw_gapless time at 100 Mbp size-gapless shapes (" + device["smi"]
         + "): " + json.dumps(size_times["sw_gapless"]))
     tools_reads = reads[:SIZE_BATCH]
+    shard_reads = reads[:SIZE_SHARD_READS]
     del gl_args, dev_l3, reads
-    _, paired_args = phase_size_paired(device, idx)
+    _, paired_args, shard_pairs = phase_size_paired(device, idx)
     log("kernel times at 100 Mbp size-paired shapes (" + device["smi"]
         + "): " + json.dumps(time_kernels(paired_args)))
     del paired_args
@@ -2695,6 +3063,9 @@ def main() -> int:
                                            tools_tmp)}
     log(f"size-tools: {time.time() - t0:.1f} s")
     del idx, tools_reads, size_first
+    shard_launches = phase_size_shards(device, contigs, shard_reads,
+                                       shard_single, shard_pairs)
+    del shard_reads, shard_single, shard_pairs
     cs_idx, cs_reads, cs_truth, cs_index_secs = size_cs_index(contigs)
     launches_cs, size_cs_args, _, cs_first_legacy = phase_size_cs(
         device, cs_idx, cs_reads, cs_truth, cs_index_secs)
@@ -2729,6 +3100,9 @@ def main() -> int:
         f"{launches['candidates_device']}")
     log("prettyprint launches: goldens-tools "
         + json.dumps(pp_golden_launches))
+    log("multi-device launches: goldens-shards "
+        + json.dumps(shard_golden_launches) + ", size-shards "
+        + json.dumps(shard_launches))
     log(f"total: {time.time() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [

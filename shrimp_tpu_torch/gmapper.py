@@ -19,9 +19,11 @@ logging are the JAX package's own.
 Mapping runs on the first CUDA device (the kernels).  It runs on the CPU
 (their plain PyTorch versions) only when the caller passes `device="cpu"`
 or the environment sets `SHRIMP_TPU_TORCH_DEVICE=cpu`; without a CUDA
-device and without such a request it exits with rc 1.  The multi-device
-flags (`--genome-shards`, `--devices`) are not ported yet and exit with
-rc 1.
+device and without such a request it exits with rc 1.  With
+`--genome-shards N` the genome is split into N contig groups, each mapped
+by its own mapper on the devices `--devices` names (the first N cards,
+all by default; shards share cards round-robin, and on the CPU all of
+them run there) and merged exactly (`parallel/mesh.py`).
 
 Usage:
     python -m shrimp_tpu_torch.gmapper [options] reads.fq genome.fa
@@ -29,6 +31,7 @@ Usage:
     python -m shrimp_tpu_torch.gmapper -p opp-in -I 0,500 pairs.fq genome.fa
     python -m shrimp_tpu_torch.gmapper -S prefix genome.fa    (save an index)
     python -m shrimp_tpu_torch.gmapper -L prefix reads.fq     (map on it)
+    python -m shrimp_tpu_torch.gmapper --genome-shards 4 reads.fq genome.fa
 """
 
 from __future__ import annotations
@@ -263,11 +266,6 @@ def log(msg: str) -> None:
     sys.stderr.write(msg + "\n")
 
 
-# flag -> the path it belongs to; each exits with rc 1 for now
-_NOT_PORTED = {o: "multi-device mapping"
-               for o in ("--genome-shards", "--devices")}
-
-
 def main(argv: list[str] | None = None,
          device: str | None = None) -> int:
     """Run the CLI on `argv` (program name first); map on `device`, by
@@ -285,12 +283,6 @@ def main(argv: list[str] | None = None,
     for o, a in opts:
         if o == "--mode" and a in ("ls", "cs"):
             mode = a
-    for o, _ in opts:
-        if o in _NOT_PORTED:
-            log(f"error: option {o} ({_NOT_PORTED[o]}) is not yet ported "
-                "to shrimp_tpu_torch")
-            return 1
-
     import torch
 
     from shrimp_tpu_torch import index as gindex
@@ -353,6 +345,8 @@ def main(argv: list[str] | None = None,
     save_prefix = load_prefix = None
     save_mmap_prefix = load_mmap_prefix = None
     index_format = "npz"
+    genome_shards = 1
+    n_devices = 0
     trim_illumina = False
     no_hash_filter_calls = False
     auto_trim_off = False
@@ -652,6 +646,13 @@ def main(argv: list[str] | None = None,
             sam_header_sections[o.rsplit("-", 1)[1]] = a
         elif o == "--sam-r2":
             sam_r2 = True
+        elif o == "--genome-shards":
+            genome_shards = int(a)
+            if genome_shards < 1:
+                log("error: --genome-shards must be >= 1")
+                return 1
+        elif o == "--devices":
+            n_devices = int(a)
         elif o == "--index-format":
             if a not in ("npz", "ref", "both"):
                 log(f"error: invalid index format {a!r} (npz|ref|both)")
@@ -896,13 +897,40 @@ def main(argv: list[str] | None = None,
             max_w = (12 if use_hashing
                      else max(s.weight for s in seed_set.seeds))
             cfg.list_cutoff = max(1000, (100 * total_len) // (4 ** max_w))
-        idx = gindex.build_index(contigs, seed_set, colour_space=colour)
-        if cfg.list_cutoff != 0xFFFFFFFF:
-            idx.trim(cfg.list_cutoff)
+        if genome_shards > 1:
+            from shrimp_tpu_torch.parallel.mesh import split_index_shards
+            shard_indexes = split_index_shards(
+                contigs, genome_shards, seed_set, colour_space=colour)
+            if len(shard_indexes) < genome_shards:
+                log(f"note: only {len(shard_indexes)} contig groups; "
+                    f"using {len(shard_indexes)} genome shards")
+                genome_shards = len(shard_indexes)
+            # each shard trimmed at the WHOLE genome's cutoff
+            if cfg.list_cutoff != 0xFFFFFFFF:
+                for si in shard_indexes:
+                    si.trim(cfg.list_cutoff)
+            idx = shard_indexes[0]      # header/QC fallback handle
+        else:
+            idx = gindex.build_index(contigs, seed_set, colour_space=colour)
+            if cfg.list_cutoff != 0xFFFFFFFF:
+                idx.trim(cfg.list_cutoff)
         log("Loaded Genome")     # exact text (genome.c:1180)
     load_genome_secs = time.time() - t0
+    if genome_shards > 1:
+        if load_prefix is not None or load_mmap_prefix is not None or \
+                save_prefix is not None or save_mmap_prefix is not None:
+            log("error: --genome-shards maps directly from genome FASTA")
+            return 1
+        if shrimp_format:
+            log("error: --genome-shards emits SAM (the cluster workflow's "
+                "merge format); legacy output is single-index only")
+            return 1
+
     if y_proj_hist:
-        telemetry.print_genomemap_stats(log, idx)
+        # exact print_genomemap_stats format (genome.c:834-903); with
+        # --genome-shards each shard prints its own table
+        for si in (shard_indexes if genome_shards > 1 else [idx]):
+            telemetry.print_genomemap_stats(log, si)
 
     if save_mmap_prefix is not None:
         idx.save_mmap(save_mmap_prefix)
@@ -967,7 +995,9 @@ def main(argv: list[str] | None = None,
                     out.write(ln_ + "\n")
         section("hd", ["@HD\tVN:1.0\tSO:unsorted"])
         section("sq", [f"@SQ\tSN:{nm}\tLN:{int(ln)}"
-                       for nm, ln in zip(idx.contig_names, idx.contig_len)])
+                       for si in (shard_indexes if genome_shards > 1
+                                  else [idx])
+                       for nm, ln in zip(si.contig_names, si.contig_len)])
         section("rg", ([f"@RG\tID:{read_group[0]}\tSM:{read_group[-1]}"]
                        if read_group else []))
         section("pg", [f"@PG\tID:gmapper\tVN:{VERSION}\tCL:{' '.join(argv)}"])
@@ -978,6 +1008,22 @@ def main(argv: list[str] | None = None,
         log("error: cannot use --trim-first or --trim-second in "
             "unpaired mode")
         return 1
+
+    def build_cli_mesh():
+        # the mapping device's cards ONLY, starting at it: under
+        # parallel/multihost.py each rank maps its share of the reads
+        # against its own genome-shard mesh
+        from shrimp_tpu_torch.parallel.shard import (make_mesh,
+                                                     visible_cuda_devices)
+        devs = ([device] if device.type == "cpu"
+                else visible_cuda_devices(device.index or 0))
+        nd = min(n_devices or len(devs), len(devs))
+        if nd >= genome_shards:
+            nd = max(nd - nd % genome_shards, genome_shards)
+            return make_mesh(nd, genome_shards, devices=devs[:nd])
+        # fewer devices than shards: they repeat round-robin
+        return make_mesh(genome_shards, genome_shards, devices=devs[:nd])
+
     if pair_mode != 0:
         pcfg = PairedConfig(pair_mode=pair_mode,
                             min_insert_size=isize_min,
@@ -985,9 +1031,19 @@ def main(argv: list[str] | None = None,
                             insert_size_mean=insert_size_mean,
                             insert_size_stddev=insert_size_stddev,
                             match_mode=cfg.match_mode_unpaired)
-        mapper = PairedMapper(idx, cfg, pcfg, device=device)
-        paired_popts = [mapper._popts_from(rpo)
-                        for rpo in paired_option_sets]
+        if genome_shards > 1:
+            from shrimp_tpu_torch.parallel.mesh import MeshPairedMapper
+            mapper = MeshPairedMapper(shard_indexes, cfg, pcfg,
+                                      mesh=build_cli_mesh())
+            paired_popts = [mapper.mappers[0]._popts_from(rpo)
+                            for rpo in paired_option_sets]
+        else:
+            mapper = PairedMapper(idx, cfg, pcfg, device=device)
+            paired_popts = [mapper._popts_from(rpo)
+                            for rpo in paired_option_sets]
+    elif genome_shards > 1:
+        from shrimp_tpu_torch.parallel.mesh import MeshMapper
+        mapper = MeshMapper(shard_indexes, cfg, mesh=build_cli_mesh())
     else:
         mapper = Mapper(idx, cfg, device=device)
 
@@ -1113,11 +1169,30 @@ def main(argv: list[str] | None = None,
                 log("warning: odd number of reads in paired mode; "
                     "dropping the last one")
 
-        # the pipelined stream: two batches on worker threads, one's host
-        # work overlapping the other's kernels
-        for pr in mapper.map_pair_stream(
-                pairs_gen(), batch_size=max(batch_size // 2, 1),
-                option_sets=paired_popts or None):
+        if genome_shards > 1:
+            # mesh mode: per-shard paired funnels + Part-2c recombination
+            def pair_results():
+                import itertools
+                it = pairs_gen()
+                while True:
+                    chunk = list(itertools.islice(
+                        it, max(batch_size // 2, 1)))
+                    if not chunk:
+                        break
+                    for pr_, tp_, tu_ in mapper.map_pair_batch(
+                            chunk, option_sets=paired_popts or None):
+                        yield pr_, (lambda p, a=tp_, b=tu_:
+                                    mapper.sam_records_pair(p, a, b))
+        else:
+            # the pipelined stream: two batches on worker threads, one's
+            # host work overlapping the other's kernels
+            def pair_results():
+                for pr_ in mapper.map_pair_stream(
+                        pairs_gen(), batch_size=max(batch_size // 2, 1),
+                        option_sets=paired_popts or None):
+                    yield pr_, mapper.sam_records_pair
+
+        for pr, emit_pair in pair_results():
             n_reads += 2
             got = bool(pr.paired_hits or pr.unpaired_hits)
             n_matched += 2 if got else 0
@@ -1146,7 +1221,7 @@ def main(argv: list[str] | None = None,
                 for line in mapper.legacy_records_pair(pr, rflag):
                     out.write(line + "\n")
             else:
-                for rec in mapper.sam_records_pair(pr):
+                for rec in emit_pair(pr):
                     out.write(rec.line() + "\n")
             if progress and n_reads % progress < 2:
                 progress_print()
@@ -1172,7 +1247,34 @@ def main(argv: list[str] | None = None,
             if progress and n_reads % progress == 0:
                 progress_print()
 
-        if len(unpaired_option_sets) > 1:
+        if genome_shards > 1:
+            # mesh mode: batch through MeshMapper, emit merged shard hits
+            while True:
+                batch = []
+                for rec in stream:
+                    batch.append(trim_rec(rec))
+                    if len(batch) >= batch_size:
+                        break
+                if not batch:
+                    break
+                triples = [(r.name, r.seq, r.qual)
+                           for r in batch if rec_ok(r)]
+                for re_e, shard_hits in mapper.map_batch(
+                        triples, options=unpaired_option_sets or None):
+                    n_reads += 1
+                    if shard_hits:
+                        n_matched += 1
+                        if any(h.mqv >= 10 for _, h in shard_hits):
+                            n_matched_conf += 1
+                        if al_file:
+                            al_recs.append(re_e)
+                    elif un_file:
+                        un_recs.append(re_e)
+                    for rec2 in mapper.sam_records(re_e, shard_hits):
+                        out.write(rec2.line() + "\n")
+                    if progress and n_reads % progress == 0:
+                        progress_print()
+        elif len(unpaired_option_sets) > 1:
             # multi-round option sets go through map_batch's round loop
             while True:
                 batch = []
@@ -1225,8 +1327,8 @@ def main(argv: list[str] | None = None,
         engine_info={
             "pass1_engine": "cuda kernel" if on_card else "plain torch",
             "pass1_path": "device" if on_card else "host",
-            "l3_choice": mapper._l3_choice,
-            "l3_reason": mapper._l3_reason,
+            "l3_choice": getattr(mapper, "_l3_choice", None),
+            "l3_reason": getattr(mapper, "_l3_reason", None),
             "device_candidates": cfg.device_candidates,
             "device_l3_fallbacks": ms.get("device_l3_fallbacks", 0),
         },

@@ -210,15 +210,23 @@ class PairedMapper(Mapper):
                  pcfg: PairedConfig | None = None, device="cuda"):
         super().__init__(index, cfg, device=device)
         self.pcfg = pcfg or PairedConfig()
+        # cross-shard MQV: the class priors scale with GENOME length
+        # (pr_top_random * total_len); a genome-shard mapper recombining
+        # globally must use the whole genome's length, not its shard's
+        self.mqv_total_len: int | None = None
 
     # ------------------------------------------------------------------
-    def map_pair_batch(self, pairs, option_sets=None) -> list[PairResult]:
+    def map_pair_batch(self, pairs, option_sets=None,
+                       compute_mqv: bool = True) -> list[PairResult]:
         """Map a batch of read pairs through the option-set rounds
         (handle_readpair's do/while, mapping.c:2486-2568).
 
         pairs: list of ((name, seq, qual), (name, seq, qual)).
         option_sets: list of popts dicts (see `_popts_from` /
         `default_paired_sets`); None = the default single set.
+        compute_mqv=False defers the class-based MQV pass: a genome-shard
+        caller (MeshPairedMapper) merges shards first and runs
+        `_paired_mqv` on the combined PairResult.
         """
         cfg = self.cfg
         pcfg = self.pcfg
@@ -457,7 +465,7 @@ class PairedMapper(Mapper):
                 for side in (0, 1):
                     for fh in unpaired_final[side].get(pi, []):
                         pr.unpaired_hits.append((side, fh))
-                if cfg.compute_mapping_qualities:
+                if compute_mqv and cfg.compute_mapping_qualities:
                     self._paired_mqv(pr)
         return results
 
@@ -1384,7 +1392,7 @@ class PairedMapper(Mapper):
             for fh in unp[nip]:
                 fh.pr_top_random = ptr
             pr_top_random[nip] = min(
-                ptr * self.index.total_len, 1.0)
+                ptr * (self.mqv_total_len or self.index.total_len), 1.0)
         if pr.paired_hits:
             best_tmp = 1.0
             for fh0, fh1, isz in pr.paired_hits:
@@ -1400,7 +1408,8 @@ class PairedMapper(Mapper):
                 fh0.pr_top_random = best_tmp
                 fh1.pr_top_random = best_tmp
             pr_top_random[2] = min(
-                best_tmp * self.index.total_len, 1.0)
+                best_tmp * (self.mqv_total_len or self.index.total_len),
+                1.0)
 
         pr_missed = [mapq.get_pr_missed(re[1].read_len),
                      mapq.get_pr_missed(re[0].read_len)]

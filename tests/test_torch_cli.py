@@ -51,16 +51,6 @@ def test_read_group_and_extra_fields():
     assert any("\tZE:Z:" in ln for ln in lines)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--genome-shards", "2"], ["--devices", "2"],
-], ids=lambda f: f[0])
-def test_flags_outside_the_slice_exit_1(flags):
-    rc, out, err = run(flags + ["reads.fq", "genome.fa"])
-    assert rc == 1
-    assert "not yet ported to shrimp_tpu_torch" in err
-    assert out == ""
-
-
 # (program name, flags, reads, genome, golden) as the JAX package's CLI
 # tests run them
 CLI_GOLDENS = {

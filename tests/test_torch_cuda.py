@@ -881,6 +881,75 @@ def test_reference_projection_maps_on_the_card(cuda_device):
     assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,S", [(2, 2), (4, 2)], ids=["1x2", "2x2"])
+def test_sharded_steps_on_the_card_equal_plain(cuda_device, n, S):
+    """sharded_pass1_step / sharded_map_step at the JAX dry run's shapes
+    (B 16, G 64, R 32, k 4, seed 1) on the card (K1, then K3+K4 over the
+    full band), against the same steps on the CPU plain versions."""
+    from shrimp_tpu_torch.parallel import shard
+    rng = np.random.default_rng(1)
+    windows = rng.integers(0, 4, size=(16, S, 64)).astype(np.int8)
+    reads = rng.integers(0, 4, size=(16, 1, 32)).astype(np.int8)
+    card = shard.make_mesh(n, genome_shards=S, devices=[cuda_device])
+    cpu = shard.make_mesh(n, genome_shards=S, devices=["cpu"])
+    before = (tsv.LAUNCHES.value, tsf.LAUNCHES.value)
+    top, z1 = shard.sharded_pass1_step(card, k=4)(windows, reads)
+    stats, z1b = shard.sharded_map_step(card)(windows, reads)
+    assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
+    top_p, z1_p = shard.sharded_pass1_step(cpu, k=4)(windows, reads)
+    stats_p, z1b_p = shard.sharded_map_step(cpu)(windows, reads)
+    assert torch.equal(top, top_p) and torch.equal(stats, stats_p)
+    np.testing.assert_allclose(z1.numpy(), z1_p.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(z1b.numpy(), z1b_p.numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_mesh_mapper_on_the_card_equals_cpu(cuda_device):
+    """MeshMapper with 4 shards on one card against the same mesh on the
+    CPU, and the single-index mapper: equal SAM."""
+    from shrimp_tpu_torch.parallel import mesh as tmesh
+    from shrimp_tpu_torch.parallel import shard
+    from shrimp_tpu_torch.utils import synth
+    rng = np.random.default_rng(21)
+    contigs = [fastx.Contig(name=f"ctg{i:02d}",
+                            codes=rng.integers(0, 4, 12_000).astype(np.int8))
+               for i in range(8)]
+    whole = gindex.build_index(contigs)
+    reads, _ = synth.make_reads(whole, rng, 120)
+    shards = tmesh.split_index_shards(contigs, 4)
+    card = tmesh.MeshMapper(shards, MapperConfig(qual_delta=64),
+                            mesh=shard.make_mesh(4, 4, devices=[cuda_device]))
+    assert [m.device for m in card.mappers] == [cuda_device] * 4
+    cpu = tmesh.MeshMapper(shards, MapperConfig(qual_delta=64),
+                           mesh=shard.make_mesh(4, 4, devices=["cpu"]))
+    single = Mapper(whole, MapperConfig(qual_delta=64), device=cuda_device)
+
+    def lines(m, res):
+        return [rec.line() for e, h in res for rec in m.sam_records(e, h)]
+
+    before = tsv.LAUNCHES.value
+    got = lines(card, card.map_batch(reads))
+    assert tsv.LAUNCHES.value >= before + 4
+    assert got == lines(cpu, cpu.map_batch(reads))
+    assert got == lines(single, single.map_batch(reads))
+
+
+@pytest.mark.cuda
+def test_cli_genome_shards_golden_on_the_card(cuda_device):
+    """gmapper --genome-shards 2 on the card: the reference's SAM."""
+    before = (tsv.LAUNCHES.value, tsf.LAUNCHES.value)
+    rc, out, err = _run_main(gmapper.main, [
+        "gmapper", "-Q", "--genome-shards", "2",
+        os.path.join(GOLDEN, "golden_reads.fq"),
+        os.path.join(GOLDEN, "golden_genome.fa")], "cuda")
+    assert rc == 0, err[-2000:]
+    assert "PyTorch port on cuda" in err
+    assert golden_cli.compared(out, "golden_unpaired.sam") == \
+        golden_cli.expected("golden_unpaired.sam")
+    assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
+
+
 def test_build_failure_raises(tmp_path, monkeypatch):
     """A compiler error is raised with its output; nothing falls back."""
     fake = tmp_path / "nvcc"

@@ -92,6 +92,7 @@ import shrimp_tpu_torch.pipeline.paired
 import shrimp_tpu_torch.utils.golden_cli
 import shrimp_tpu_torch.utils.synth
 import shrimp_tpu_torch.io.refindex
+from shrimp_tpu_torch.parallel import genome_axis, mesh, multihost, shard
 from shrimp_tpu_torch.tools import (fasta2fastq, mergesam, prettyprint,
                                     probcalc, probcalc_mp, shrimp2sam,
                                     shrimp_var, splitdb, splitreads, utils)
@@ -105,7 +106,8 @@ print("clean")
 
 def test_entry_points_load_no_jax_package():
     """In a fresh process where jax is installed and importable, the
-    port's entry points (the CLI and the tools) load no jax module and no
+    port's entry points (the CLI, the tools and the multi-device modules)
+    load no jax module and no
     module of the JAX package (whose `__init__` imports jax)."""
     import jax  # noqa: F401  (the check means something only with jax here)
     r = subprocess.run([sys.executable, "-c", _PROGRAM_IMPORTS], cwd=REPO,
@@ -120,7 +122,10 @@ def _port_sources():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 25
     for part in (("pipeline", "paired.py"), ("io", "refindex.py"),
-                 ("tools", "prettyprint.py"), ("tools", "mergesam.py")):
+                 ("tools", "prettyprint.py"), ("tools", "mergesam.py"),
+                 ("parallel", "shard.py"), ("parallel", "mesh.py"),
+                 ("parallel", "multihost.py"),
+                 ("parallel", "genome_axis.py")):
         assert os.path.join(REPO, "shrimp_tpu_torch", *part) in files
     return files
 
