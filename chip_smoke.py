@@ -1503,11 +1503,12 @@ def phase_size_paired(device: dict, idx) -> tuple[dict, dict]:
         "reads_per_sec_run2": round(reads_n / map_secs2, 1),
         "windows_per_read": tel.f1.invocs / reads_n,
         # stage seconds add up over the stream's two worker threads: the
-        # pass-2 share is of their sum
+        # pass-2 share is of the sum of the outer stages
         "pass2_share": round(
             sum(tel.stages[k].secs for k in ("pass2", "hp_pass2")
                 if k in tel.stages)
-            / max(sum(t.secs for t in tel.stages.values()), 1e-9), 4),
+            / max(sum(tel.stages[k].secs for k in stage_names
+                      if k in tel.stages), 1e-9), 4),
         "pairs_matched_frac": round(n_pairs_matched / SIZE_PAIRS, 4),
         "recall_top_pair": round(n_correct / SIZE_PAIRS, 4),
         "stage_secs": {k: round(tel.stages[k].secs, 3) for k in stage_names

@@ -390,6 +390,7 @@ class Mapper:
         read in input order."""
         cfg = self.cfg
         option_sets = options or cfg.unpaired_options()
+        self.tel.begin_batch()
 
         with self.tel.stage("readparse"):
             entries = cand.prepare_reads(reads, cfg, self.min_seed_span)
@@ -487,6 +488,7 @@ class Mapper:
             return
 
         def stage0(reads):
+            k = self.tel.begin_batch()
             with self.tel.stage("readparse"):
                 entries = cand.prepare_reads(reads, cfg, self.min_seed_span)
                 if cfg.seed_qual_filter:
@@ -503,10 +505,11 @@ class Mapper:
                       if hb is not None and hb.n else None)
             if hb is not None and hb.n:
                 self._bump(pass1_windows=hb.n)
-            return {"entries": entries, "live": live, "live_map": live_map,
-                    "hb": hb, "p1": p1}
+            return {"batch": k, "entries": entries, "live": live,
+                    "live_map": live_map, "hb": hb, "p1": p1}
 
         def stage1(st0):
+            self.tel.set_batch(st0["batch"])
             if st0["p1"] is None:
                 st0["sel"] = None
                 st0["p2"] = None
@@ -523,6 +526,7 @@ class Mapper:
             return st0
 
         def stage2(st0):
+            self.tel.set_batch(st0["batch"])
             entries = st0["entries"]
             results = [[] for _ in entries]
             if st0["p2"] is not None:
@@ -582,11 +586,11 @@ class Mapper:
             if self._candidates_device(entries, opts) is None:
                 self._l3_choice = "host"
                 return False
-            t0 = time.time()
+            t0 = time.perf_counter()
             self._candidates_device(entries, opts)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            t_dev = time.time() - t0
+            t_dev = time.perf_counter() - t0
         except torch.OutOfMemoryError:
             self._bump(device_l3_fallbacks=1)
             self._l3_choice = "host"
@@ -594,7 +598,7 @@ class Mapper:
             self._dev_l3_ws = candidates_device.L3Workspace()
             return False
         saved, self.cfg.device_candidates = self.cfg.device_candidates, False
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             sub = entries[: max(len(entries) // 4, 1)]
             for st in (0, 1):
@@ -609,7 +613,8 @@ class Mapper:
                                   self.cfg)
         finally:
             self.cfg.device_candidates = saved
-        t_host = (time.time() - t0) * (len(entries) / max(len(sub), 1))
+        t_host = ((time.perf_counter() - t0)
+                  * (len(entries) / max(len(sub), 1)))
         self._l3_choice = "device" if t_dev < t_host else "host"
         if self._l3_model is not None:   # measured verdict for the stats
             self._l3_model["t_dev_batch"] = round(t_dev, 3)
@@ -696,12 +701,12 @@ class Mapper:
             dst[: 1 << 20].copy_(probe[: 1 << 20])          # warm path
             if kind == "cuda":
                 torch.cuda.synchronize(self.device)
-            t0 = time.time()
+            t0 = time.perf_counter()
             dst.copy_(probe)
             if kind == "cuda":
                 torch.cuda.synchronize(self.device)
-            _SHIP_BW[kind] = max(probe.numel() / max(time.time() - t0, 1e-6),
-                                 1.0)
+            _SHIP_BW[kind] = max(
+                probe.numel() / max(time.perf_counter() - t0, 1e-6), 1.0)
         return _SHIP_BW[kind]
 
     def _candidates_device(self, entries, opts):
@@ -709,12 +714,12 @@ class Mapper:
         fallback when a capacity maxes out (counted)."""
         cdv = candidates_device
         if self._dev_l3 is None:
-            _t0 = time.time()
+            _t0 = time.perf_counter()
             self._dev_l3 = cdv.DeviceL3Index.from_host(self.index,
                                                        self.device)
             if self._l3_model is not None:
                 self._l3_model["ship_secs_actual"] = \
-                    round(time.time() - _t0, 2)
+                    round(time.perf_counter() - _t0, 2)
         B = len(entries)
         R = _round_up(max(e.read_len for e in entries), 16)
         codes = {0: np.zeros((B, R), np.int8), 1: np.zeros((B, R), np.int8)}
@@ -775,8 +780,9 @@ class Mapper:
                     self._bump(device_l3_fallbacks=1)
                     return None                    # host fallback
             n = int(out["n"])
-            cols = dict(zip(cdv.COLUMNS, torch.stack(
-                [out[f][:n] for f in cdv.COLUMNS]).cpu().numpy()))
+            with self.tel.stage("device_fetch"):
+                cols = dict(zip(cdv.COLUMNS, torch.stack(
+                    [out[f][:n] for f in cdv.COLUMNS]).cpu().numpy()))
             order = np.lexsort((cols["g_off"], cols["cn"], cols["rid"]))
             parts.append(cb.HitBatch(
                 rid=cols["rid"][order].astype(np.int32),
@@ -887,9 +893,8 @@ class Mapper:
         idxs = ctx["idxs"]
         rid = ctx["rid"]
         st = ctx["st"]
-        _t0 = time.time()
-        scores = ctx["dev"].cpu().numpy().astype(np.int64)
-        _f1_secs = time.time() - _t0
+        with self.tel.stage("device_fetch") as fetch:
+            scores = ctx["dev"].cpu().numpy().astype(np.int64)
         score_max = hb.score_max[idxs].astype(np.int64)
         if opts.pass1.threshold >= 0:
             # (int)abs_or_pct truncation (read_pass1_per_strand,
@@ -958,7 +963,7 @@ class Mapper:
         else:
             _cells = int((hb.w_len[idxs][~suppressed].astype(np.int64)
                           * _rlen[~suppressed]).sum())
-        self.tel.f1.add(_inv, _cells, _f1_secs)
+        self.tel.f1.add(_inv, _cells, fetch.last)
         live = eff_scores >= thr
         if not live.any():
             return None
@@ -1033,176 +1038,195 @@ class Mapper:
         and the hit lies on the reverse genome strand where st !=
         istrand (hit_run_full_sw, mapping.c:383-398).  Unpaired rows are
         at input strand 0."""
-        cfg = self.cfg
-        N = len(sel["rid"])
-        rid = sel["rid"]
-        st = sel["st"]
-        cn = sel["cn"]
-        w_len = sel["w_len"].astype(np.int64)
-        clen = self.index.contig_len[cn]
-        rlen = np.array([entries[r].read_len for r in rid], np.int64)
-        istrand = np.asarray(sel.get("istrand", np.zeros(N, np.int8)),
-                             np.int8)
+        with self.tel.stage("pass2_dispatch"):
+            cfg = self.cfg
+            N = len(sel["rid"])
+            rid = sel["rid"]
+            st = sel["st"]
+            cn = sel["cn"]
+            w_len = sel["w_len"].astype(np.int64)
+            clen = self.index.contig_len[cn]
+            rlen = np.array([entries[r].read_len for r in rid], np.int64)
+            istrand = np.asarray(sel.get("istrand", np.zeros(N, np.int8)),
+                                 np.int8)
 
-        # reverse_hit (mapping.c:272-281)
-        gen_st = (st != istrand).astype(np.int64)
-        g_off = np.where(gen_st == 1, clen - sel["g_off"] - w_len,
-                         sel["g_off"]).astype(np.int64)
-        ax = sel["anchor_x"].astype(np.int64)
-        ay = sel["anchor_y"].astype(np.int64)
-        al = sel["anchor_length"].astype(np.int64)
-        aw = sel["anchor_width"].astype(np.int64)
-        rev_mask = gen_st == 1
-        ax = np.where(rev_mask, -ax + (w_len - 1) - (al - 1) - (aw - 1), ax)
-        ay = np.where(rev_mask, -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
+            # reverse_hit (mapping.c:272-281)
+            gen_st = (st != istrand).astype(np.int64)
+            g_off = np.where(gen_st == 1, clen - sel["g_off"] - w_len,
+                             sel["g_off"]).astype(np.int64)
+            ax = sel["anchor_x"].astype(np.int64)
+            ay = sel["anchor_y"].astype(np.int64)
+            al = sel["anchor_length"].astype(np.int64)
+            aw = sel["anchor_width"].astype(np.int64)
+            rev_mask = gen_st == 1
+            ax = np.where(rev_mask,
+                          -ax + (w_len - 1) - (al - 1) - (aw - 1), ax)
+            ay = np.where(rev_mask,
+                          -ay + (rlen - 1) - (al - 1) + (aw - 1), ay)
 
-        G = _round_up(max(1, int(w_len.max())), 128)
-        R = _round_up(max(e.read_len for e in entries), 8)
-        gb_f = self._gather_windows(self.index.genome, cn, g_off, w_len, G)
-        gb_r = self._gather_windows(self.genome_rc, cn, g_off, w_len, G)
-        gb = np.where(rev_mask[:, None], gb_r, gb_f)
-        rb = self._reads_matrix(entries, rid, istrand, R)
-        rev = rev_mask & cfg.rev_tiebreak
+            G = _round_up(max(1, int(w_len.max())), 128)
+            R = _round_up(max(e.read_len for e in entries), 8)
+            gb_f = self._gather_windows(self.index.genome, cn, g_off, w_len, G)
+            gb_r = self._gather_windows(self.genome_rc, cn, g_off, w_len, G)
+            gb = np.where(rev_mask[:, None], gb_r, gb_f)
+            rb = self._reads_matrix(entries, rid, istrand, R)
+            rev = rev_mask & cfg.rev_tiebreak
 
-        if cfg.anchor_width >= 0:
-            # anchor_widen (sw-full-ls.c:175-178)
-            bx = ax - cfg.anchor_width // 2
-            by = ay + cfg.anchor_width // 2
-            bw = aw + cfg.anchor_width
-            band_xmin, band_xmax = sw_full.compute_band(bx, by, al, bw,
-                                                        w_len, R)
-            # f2 telemetry: banded cell count per row (sw-full-ls.c:237)
-            _rows = np.arange(R)[None, :] < rlen[:, None]
-            _f2_cells = np.where(
-                _rows, band_xmax.astype(np.int64) - band_xmin + 1,
-                0).sum(axis=1)
-            # packed width: the widest band row in 32s.  When it reaches
-            # G (where the JAX package switches to its unbanded-layout
-            # kernel) this is round_up(G, 32), as bands never leave the
-            # window
-            W = _round_up(int((band_xmax - band_xmin).max()) + 1, 32)
-        else:
-            # no band: the same packed kernel over the full band
-            # [0, w_len - 1] of every row
-            band_xmin = np.zeros((N, R), np.int32)
-            band_xmax = np.broadcast_to(
-                (w_len - 1).astype(np.int32)[:, None], (N, R)).copy()
-            _f2_cells = w_len * rlen
-            W = _round_up(G, 32)
+            if cfg.anchor_width >= 0:
+                # anchor_widen (sw-full-ls.c:175-178)
+                bx = ax - cfg.anchor_width // 2
+                by = ay + cfg.anchor_width // 2
+                bw = aw + cfg.anchor_width
+                band_xmin, band_xmax = sw_full.compute_band(bx, by, al, bw,
+                                                            w_len, R)
+                # f2 telemetry: banded cell count per row (sw-full-ls.c:237)
+                _rows = np.arange(R)[None, :] < rlen[:, None]
+                _f2_cells = np.where(
+                    _rows, band_xmax.astype(np.int64) - band_xmin + 1,
+                    0).sum(axis=1)
+                # packed width: the widest band row in 32s.  When it reaches
+                # G (where the JAX package switches to its unbanded-layout
+                # kernel) this is round_up(G, 32), as bands never leave the
+                # window
+                W = _round_up(int((band_xmax - band_xmin).max()) + 1, 32)
+            else:
+                # no band: the same packed kernel over the full band
+                # [0, w_len - 1] of every row
+                band_xmin = np.zeros((N, R), np.int32)
+                band_xmax = np.broadcast_to(
+                    (w_len - 1).astype(np.int32)[:, None], (N, R)).copy()
+                _f2_cells = w_len * rlen
+                W = _round_up(G, 32)
 
-        dev_in = [self._to_device(a) for a in (gb, rb, rev, band_xmin,
-                                                 band_xmax)]
-        qr4 = None
-        if cfg.colour_space:
-            qr4 = np.full((N, 4, R), sw_vector.READ_PAD, np.int8)
-            xover = np.full((N, R), cfg.params.crossover, np.int32)
-            for n, r in enumerate(rid):
-                e = entries[r]
-                qr4[n, :, :e.read_len] = cand.get_read_ls4(e, istrand[n])
-                if e.crossover_score is not None:
-                    xover[n, :e.read_len] = e.crossover_score
-            # the 4-layer DP: the same packed form over the full band
-            # where the JAX package switches to its unbanded kernel
-            stats_d, ops_d = sw_full_cs.sw_full_cs_and_traceback_packed(
-                dev_in[0], self._to_device(qr4), self._to_device(xover),
-                *dev_in[2:], cfg.params,
-                local_alignment=not cfg.global_alignment,
-                taboo_len=cfg.indel_taboo_len, W=W)
-        else:
-            stats_d, ops_d = sw_full.sw_full_and_traceback_packed(
-                *dev_in, cfg.params,
-                local_alignment=not cfg.global_alignment, W=W)
-            # LS pass2 re-runs the vector filter per hit before the scalar
-            # DP (hit_run_full_sw, mapping.c:400-415) — account it under f1
-            self.tel.f1.add(N, int((w_len * rlen).sum()))
-        return {"stats_d": stats_d, "ops_d": ops_d, "qr4": qr4, "gb": gb,
-                "N": N, "gen_st": gen_st, "g_off": g_off, "w_len": w_len,
-                "cn": cn, "f2_cells_rows": np.asarray(_f2_cells, np.int64)}
+            dev_in = [self._to_device(a) for a in (gb, rb, rev, band_xmin,
+                                                     band_xmax)]
+            qr4 = None
+            if cfg.colour_space:
+                qr4 = np.full((N, 4, R), sw_vector.READ_PAD, np.int8)
+                xover = np.full((N, R), cfg.params.crossover, np.int32)
+                for n, r in enumerate(rid):
+                    e = entries[r]
+                    qr4[n, :, :e.read_len] = cand.get_read_ls4(e, istrand[n])
+                    if e.crossover_score is not None:
+                        xover[n, :e.read_len] = e.crossover_score
+                # the 4-layer DP: the same packed form over the full band
+                # where the JAX package switches to its unbanded kernel
+                stats_d, ops_d = sw_full_cs.sw_full_cs_and_traceback_packed(
+                    dev_in[0], self._to_device(qr4), self._to_device(xover),
+                    *dev_in[2:], cfg.params,
+                    local_alignment=not cfg.global_alignment,
+                    taboo_len=cfg.indel_taboo_len, W=W)
+            else:
+                stats_d, ops_d = sw_full.sw_full_and_traceback_packed(
+                    *dev_in, cfg.params,
+                    local_alignment=not cfg.global_alignment, W=W)
+                # LS pass2 re-runs the vector filter per hit before the
+                # scalar DP (hit_run_full_sw, mapping.c:400-415) — account
+                # it under f1
+                self.tel.f1.add(N, int((w_len * rlen).sum()))
+            return {"stats_d": stats_d, "ops_d": ops_d, "qr4": qr4,
+                    "gb": gb, "N": N, "gen_st": gen_st, "g_off": g_off,
+                    "w_len": w_len, "cn": cn,
+                    "f2_cells_rows": np.asarray(_f2_cells, np.int64)}
 
     def _pass2_finish(self, entries, sel, opts, ctx):
+        with self.tel.stage("pass2_finish"):
+            cfg = self.cfg
+            N = ctx["N"]
+            with self.tel.stage("device_fetch") as fetch:
+                stats = ctx["stats_d"].cpu().numpy()[:N]
+                ops_all = ctx["ops_d"].cpu().numpy()[:N]
+            self.tel.f2.add(0, 0, fetch.last)
+            # scalar-SW invocations: in LS the reference only runs
+            # sw_full_ls when the per-hit vector re-score clears the pass2
+            # threshold (mapping.c:406-415); that re-score equals the pass1
+            # vector score
+            _smax = sel["score_max"].astype(np.int64)
+            if cfg.colour_space or cfg.gapless:
+                _qual = np.ones(N, bool)
+            else:
+                _thr = np.array([abs_or_pct(opts.pass2.threshold, s)
+                                 for s in _smax])
+                _qual = sel["score_vector"].astype(np.int64) >= _thr
+            self.tel.f2.add(int(_qual.sum()),
+                            int(ctx["f2_cells_rows"][_qual].sum()))
+            tb = {"score": stats[:, 0],
+                  "read_start": stats[:, 1], "genome_start": stats[:, 2],
+                  "matches": stats[:, 3], "mismatches": stats[:, 4],
+                  "insertions": stats[:, 5], "deletions": stats[:, 6],
+                  "rmapped": stats[:, 7], "gmapped": stats[:, 8],
+                  "ops_len": stats[:, 9], "ops": ops_all,
+                  "crossovers": (stats[:, 10] if cfg.colour_space
+                                 else None)}
+            cs = (self._pass2_posteriors(entries, sel, opts, ctx, tb)
+                  if cfg.colour_space else None)
+            with self.tel.stage("pass2_select"):
+                return self._pass2_select(sel, opts, ctx, tb, cs)
+
+    def _pass2_posteriors(self, entries, sel, opts, ctx, tb):
+        """Colour space: the raw-threshold survivors' alignments rendered,
+        and the posterior HMM run for all of them in one vectorized batch
+        (bit-equal to the per-hit pass); returns (renders, posteriors) by
+        row."""
         cfg = self.cfg
-        N = ctx["N"]
+        from shrimp_tpu_torch.ops import post_sw as post_sw_mod
         rid = sel["rid"]
-        gen_st = ctx["gen_st"]
-        g_off = ctx["g_off"]
-        w_len = ctx["w_len"]
-        cn = ctx["cn"]
-        _t0 = time.time()
-        stats = ctx["stats_d"].cpu().numpy()[:N]
-        self.tel.f2.add(0, 0, time.time() - _t0)
-        # scalar-SW invocations: in LS the reference only runs sw_full_ls
-        # when the per-hit vector re-score clears the pass2 threshold
-        # (mapping.c:406-415); that re-score equals the pass1 vector score
-        _smax = sel["score_max"].astype(np.int64)
-        if cfg.colour_space or cfg.gapless:
-            _qual = np.ones(N, bool)
-        else:
-            _thr = np.array([abs_or_pct(opts.pass2.threshold, s)
-                             for s in _smax])
-            _qual = sel["score_vector"].astype(np.int64) >= _thr
-        self.tel.f2.add(int(_qual.sum()),
-                        int(ctx["f2_cells_rows"][_qual].sum()))
-        crossovers = stats[:, 10] if cfg.colour_space else None
-        ops_all = ctx["ops_d"].cpu().numpy()[:N]
-        score = stats[:, 0]
-        tb = {"read_start": stats[:, 1], "genome_start": stats[:, 2],
-              "matches": stats[:, 3], "mismatches": stats[:, 4],
-              "insertions": stats[:, 5], "deletions": stats[:, 6],
-              "rmapped": stats[:, 7], "gmapped": stats[:, 8],
-              "ops_len": stats[:, 9], "ops": ops_all}
-
-        # --- selection per read (read_pass2) ---
-        out: dict[int, list[FinalHit]] = {}
+        score = tb["score"]
         score_max = sel["score_max"].astype(np.int64)
-        grp_order = np.argsort(rid, kind="stable")
-        grp_bounds = np.searchsorted(rid[grp_order],
-                                     np.unique(rid))
-        uniq = np.unique(rid)
-
-        # CS: collect raw-threshold survivors first, run the posterior HMM
-        # for all of them in one vectorized batch (bit-equal to the per-hit
-        # pass), then finalize below
+        gb_np, qr4 = ctx["gb"], ctx["qr4"]
         cs_posteriors: dict[int, tuple[float, str]] = {}
         cs_renders: dict[int, tuple[str, str]] = {}
-        if cfg.colour_space:
-            from shrimp_tpu_torch.ops import post_sw as post_sw_mod
-            gb_np, qr4 = ctx["gb"], ctx["qr4"]
-            items = []
-            item_rows = []
-            for n in range(len(rid)):
-                s = int(score[n])
-                if s <= 0:
-                    continue
-                thresh = abs_or_pct(opts.pass2.threshold, score_max[n])
-                if s < thresh:
-                    continue
-                ops_n = tb["ops"][n, :tb["ops_len"][n]]
-                e = entries[rid[n]]
-                dbal, qral = sw_full_cs.render_alignment_cs(
-                    ops_n, gb_np[n], qr4[n],
-                    int(tb["genome_start"][n]), int(tb["read_start"][n]))
-                cs_renders[n] = (dbal, qral)
-                if cfg.compute_mapping_qualities:
-                    q_in = (None if (e.qual is None or cfg.ignore_qvs)
-                            else e.qual)
-                    items.append({"colours": e.read[0], "initbp": e.initbp,
-                                  "qual": q_in,
-                                  "read_start": int(tb["read_start"][n]),
-                                  "dbalign": dbal, "qralign": qral})
-                    item_rows.append(n)
-            if items:
-                _t0 = time.time()
+        items = []
+        item_rows = []
+        for n in range(len(rid)):
+            s = int(score[n])
+            if s <= 0:
+                continue
+            thresh = abs_or_pct(opts.pass2.threshold, score_max[n])
+            if s < thresh:
+                continue
+            ops_n = tb["ops"][n, :tb["ops_len"][n]]
+            e = entries[rid[n]]
+            dbal, qral = sw_full_cs.render_alignment_cs(
+                ops_n, gb_np[n], qr4[n],
+                int(tb["genome_start"][n]), int(tb["read_start"][n]))
+            cs_renders[n] = (dbal, qral)
+            if cfg.compute_mapping_qualities:
+                q_in = (None if (e.qual is None or cfg.ignore_qvs)
+                        else e.qual)
+                items.append({"colours": e.read[0], "initbp": e.initbp,
+                              "qual": q_in,
+                              "read_start": int(tb["read_start"][n]),
+                              "dbalign": dbal, "qralign": qral})
+                item_rows.append(n)
+        if items:
+            with self.tel.stage("post_sw") as post:
                 res = post_sw_mod.post_sw_batch(
                     items, self.probs, qual_delta=cfg.qual_delta,
                     qual_vector_offset=cfg.qual_vector_offset)
-                # post_sw: cells = 16 * alignment columns (sw-post.c:716)
-                self.tel.fwbw.add(
-                    len(items),
-                    16 * sum(len(it["dbalign"]) for it in items),
-                    time.time() - _t0)
-                for n, r in zip(item_rows, res):
-                    cs_posteriors[n] = r
+            # post_sw: cells = 16 * alignment columns (sw-post.c:716)
+            self.tel.fwbw.add(
+                len(items), 16 * sum(len(it["dbalign"]) for it in items),
+                post.last)
+            for n, r in zip(item_rows, res):
+                cs_posteriors[n] = r
+        return cs_renders, cs_posteriors
 
+    def _pass2_select(self, sel, opts, ctx, tb, cs):
+        """Selection per read (read_pass2): each row's FinalHit past the
+        thresholds, then `_select_hits` a read; `cs` is colour space's
+        (renders, posteriors) by row."""
+        cfg = self.cfg
+        rid = sel["rid"]
+        gen_st, g_off, w_len, cn = (ctx["gen_st"], ctx["g_off"],
+                                    ctx["w_len"], ctx["cn"])
+        score = tb["score"]
+        crossovers = tb["crossovers"]
+        score_max = sel["score_max"].astype(np.int64)
+        out: dict[int, list[FinalHit]] = {}
+        grp_order = np.argsort(rid, kind="stable")
+        uniq = np.unique(rid)
+        grp_bounds = np.searchsorted(rid[grp_order], uniq)
         for gi, li in enumerate(uniq):
             lo = grp_bounds[gi]
             hi = grp_bounds[gi + 1] if gi + 1 < len(uniq) else len(rid)
@@ -1220,10 +1244,10 @@ class Mapper:
                     # (sw-full-cs.c:1215-1223)
                     if s < thresh:
                         continue
-                    dbal, qral = cs_renders[n]
+                    dbal, qral = cs[0][n]
                     qual33 = None
                     if cfg.compute_mapping_qualities:
-                        posterior, qual33 = cs_posteriors[n]
+                        posterior, qual33 = cs[1][n]
                         score_full = mapq.posterior_score(posterior, rmapped,
                                                           self.probs)
                         if score_full < thresh:

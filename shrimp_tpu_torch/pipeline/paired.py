@@ -233,6 +233,7 @@ class PairedMapper(Mapper):
         sets = (option_sets if option_sets is not None
                 else self.default_paired_sets())
         rev1, rev2 = PAIR_REVERSE[pcfg.pair_mode]
+        self.tel.begin_batch()
 
         with self.tel.stage("readparse"):
             entries1, entries2 = [], []
@@ -809,13 +810,13 @@ class PairedMapper(Mapper):
             wlen = np.concatenate(wlen_p)
             G = _round_up(max(1, int(wlen.max())), 128)
             R = _round_up(max(e.read_len for e in entries_comb), 8)
-            _t0 = time.time()
+            _t0 = time.perf_counter()
             dev = self._vector_scores(
                 entries_comb, rid, np.concatenate(st_p),
                 np.concatenate(cn_p), np.concatenate(goff_p), wlen,
                 np.concatenate(istr_p), G, R)
             out = dev.cpu().numpy().astype(np.int64)
-            self.tel.f1.add(0, 0, time.time() - _t0)
+            self.tel.f1.add(0, 0, time.perf_counter() - _t0)
             pos = 0
             for t in live:
                 n = len(t["_disp"])
@@ -974,13 +975,13 @@ class PairedMapper(Mapper):
                                            np.int8))
         sel = {k: np.concatenate(v) for k, v in cols.items()}
 
-        _t0 = time.time()
+        _t0 = time.perf_counter()
         ctx = self._pass2_dispatch(entries_comb, sel)
         N = ctx["N"]
         stats = ctx["stats_d"].cpu().numpy()[:N]
         ops_all = ctx["ops_d"].cpu().numpy()[:N]
         self.tel.f2.add(N, int(ctx["f2_cells_rows"].sum()),
-                        time.time() - _t0)
+                        time.perf_counter() - _t0)
         cn, gen_st = ctx["cn"], ctx["gen_st"]
         g_off, w_len = ctx["g_off"], ctx["w_len"]
         crossovers = stats[:, 10] if cfg.colour_space else None

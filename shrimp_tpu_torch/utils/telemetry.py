@@ -16,18 +16,31 @@ Cell accounting matches the reference kernels:
   full SW     sum of band widths per row     (sw-full-ls.c:237, -cs.c:327)
   post SW     16 * len per invocation        (sw-post.c:716)
 
-Timers are wall-clock per pipeline stage; on TPU the kernel "seconds" are
-the dispatch+sync wall time of the batched call (device work for many
-reference invocations at once), so cells/sec is the honest throughput of
-the batched kernel.
+Timers are host wall-clock seconds per pipeline stage, on a monotonic
+clock (`time.perf_counter`).  On the card the kernel "seconds" are the
+host's blocking read of the batched call's result, which includes the wait
+for its kernels (device work for many reference invocations at once), so
+cells/sec is the throughput of the batched kernel as the host sees it.
+
+While a torch profiler records, each stage entered a few times a batch is
+also a profiler range `stage.<name>` carrying the batch's id (`batch=<k>`),
+on the profiler's clock, the clock of the kernels' events; with the
+profiler off a stage costs one flag read more.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 import time
 from dataclasses import dataclass, field
+
+import torch
+
+# whether a torch profiler records: one flag read (0.1 us on a host core,
+# where a record_function costs 8-9 us even with no profiler on)
+_profiling = torch._C._autograd._profiler_enabled
 
 
 def comma_integer(val: int) -> str:
@@ -80,27 +93,54 @@ class StageTimer:
     Start times are thread-local: the pipelined paired stream runs two
     batches on worker threads, so the same named stage can be entered
     concurrently; each thread accumulates its own interval (cumulative
-    stage seconds may exceed wall time, like summed per-thread tpg)."""
+    stage seconds may exceed wall time, like summed per-thread tpg).
+
+    With a `label`, the timed interval sits inside a profiler range of
+    that name while a torch profiler records: opened before the start is
+    read and closed after the end is, so the seconds never include the
+    range's own cost.  Its argument is this thread's current batch id in
+    `batch` (`Telemetry.begin_batch`), where one is set."""
 
     def __init__(self, lock=None):
         self.secs = 0.0
         self._local = threading.local()
         self.lock = lock or threading.Lock()
+        self.label = None
+        self.batch = None
 
     def __enter__(self):
-        self._local.t0 = time.time()
+        local = self._local
+        local.rf = None
+        if self.label is not None and _profiling():
+            k = getattr(self.batch, "k", None)
+            local.rf = torch.profiler.record_function(
+                self.label, None if k is None else f"batch={k}")
+            local.rf.__enter__()
+        local.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        dt = time.time() - self._local.t0
+        local = self._local
+        local.last = time.perf_counter() - local.t0
         with self.lock:
-            self.secs += dt
+            self.secs += local.last
+        if local.rf is not None:
+            local.rf.__exit__(*exc)
         return False
+
+    @property
+    def last(self) -> float:
+        """Seconds of this thread's last interval: what a kernel's
+        counter adds for the same wait, so the two never disagree."""
+        return self._local.last
 
 
 STAGES = ("readparse", "region_counts", "mp_region_counts", "anchor_list",
           "hit_list", "pass1", "get_vector_hits", "pass2",
           "duplicate_removal", "wait")
+# entered once a read: no profiler range of their own (their time shows
+# under the enclosing stage's range)
+PER_READ = ("duplicate_removal",)
 
 
 @dataclass
@@ -117,21 +157,45 @@ class Telemetry:
     # guards every counter and timer above (Mapper passes its _stats_lock)
     lock: threading.Lock = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
+    # this thread's current batch id (`k`), read by the stages' ranges:
+    # the pipelined streams have several batches in flight
+    batch: threading.local = field(default_factory=threading.local,
+                                   repr=False, compare=False)
+    _batch_ids: itertools.count = field(default_factory=itertools.count,
+                                        repr=False, compare=False)
 
     def __post_init__(self):
         for ks in (self.f1, self.f2, self.fwbw):
             ks.lock = self.lock
-        for timer in self.stages.values():
-            timer.lock = self.lock
+        for name, timer in self.stages.items():
+            self._adopt(name, timer)
+
+    def _adopt(self, name: str, timer: StageTimer) -> None:
+        timer.lock = self.lock
+        timer.batch = self.batch
+        timer.label = None if name in PER_READ else "stage." + name
 
     def stage(self, name: str) -> StageTimer:
-        # auto-create: the paired pipeline adds stages beyond the base
-        # STAGES tuple (pair_up, hp_pass1, hp_pass2, paired_mqv)
+        # auto-create: the paired pipeline and the pass-2 split add stages
+        # beyond the base STAGES tuple (pair_up, hp_pass1, hp_pass2,
+        # paired_mqv; pass2_dispatch, pass2_finish, pass2_select, post_sw,
+        # device_fetch)
         with self.lock:
             timer = self.stages.get(name)
             if timer is None:
-                timer = self.stages[name] = StageTimer(self.lock)
+                timer = self.stages[name] = StageTimer()
+                self._adopt(name, timer)
         return timer
+
+    def begin_batch(self) -> int:
+        """A new batch id, made this thread's current one."""
+        k = next(self._batch_ids)
+        self.batch.k = k
+        return k
+
+    def set_batch(self, k: int) -> None:
+        """Make batch `k` this thread's current one again."""
+        self.batch.k = k
 
 
 _TAB = "    "
