@@ -7,7 +7,7 @@ Phases, each a function; any failure raises and the script exits
 nonzero.  There is no CPU path: without a CUDA device it stops at once.
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc builds the five kernel sources of csrc/ (sm_90a), one
+  2. build    nvcc builds the six kernel sources of csrc/ (sm_90a), one
               nvcc process per source, all started together
   3. kernels  each kernel against its plain PyTorch version on random
               inputs (pads, asymmetric gaps, row-0 plane, local/glocal;
@@ -26,7 +26,9 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
               end or at the plane's last bytes, the forced first colour on
               N letters and N colours, reads of mixed length, R of 8, 37,
               56, 512, 1,000 and 5,000, launches of 0 and 1 hit); integer
-              outputs must be exactly equal
+              outputs must be exactly equal; the colour-space posterior
+              (post_sw) on the edges of utils/post_sw_cases.py, its
+              qualities exact and its posterior within a relative 1e-12
   4. goldens  golden_unpaired / golden_long_reads / med_ls, then
               golden_cs / med_cs, mapped through the kernels, and the
               gapless golden_cs_mirna / golden_cs_ungapped /
@@ -94,9 +96,11 @@ nonzero.  There is no CPU path: without a CUDA device it stops at once.
  12. size-cs  the colour-space path on the same contigs: a colour-space
               index, 8,192 SOLiD reads (synth.make_cs_reads, seed 23,
               50 bp) in batches of 2,048, the fw||rc colour and letter
-              planes resident on the card, host candidates; launch counts;
-              the first 1,024 reads again through the plain versions;
-              each colour-space kernel timed against its plain version
+              planes resident on the card, host candidates; launch counts
+              (the posterior's too) and the rows it computed; the first
+              1,024 reads again through the plain versions; each
+              colour-space kernel, the posterior included, timed against
+              its plain version
  13. size-cs-gapless  that index and those reads with -U --local, host
               candidates: what size-gapless reports, the first 1,024
               reads through the plain versions, the gapless kernel timed
@@ -169,7 +173,8 @@ time an H100 SXM could take for the same work on the same inputs: the
 larger of the bytes the function must move over 3.35 TB/s and its int32
 operations (counted per DP cell from the recurrence, or per row and
 posting for K10) over the int32 instruction rate of 132 SMs x 64 lanes x
-1.98 GHz.  No single PyTorch call computes any of these functions, so
+1.98 GHz; the posterior's float64 operations (`time_post_sw`) over
+33.5 TFLOP/s.  No single PyTorch call computes any of these functions, so
 `library_ms` is null.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -228,12 +233,17 @@ KERNELS = {
     "candidates_device": {
         "source": "shrimp_tpu_torch/csrc/candidates_device.cu",
         "replaces": "shrimp_tpu/ops/candidates_device.py:200"},
+    # no TPU kernel: the JAX package's posterior is host NumPy
+    "post_sw": {"source": "shrimp_tpu_torch/csrc/post_sw.cu",
+                "replaces": "none (host NumPy shrimp_tpu/ops/post_sw.py:49)"},
 }
 
 # H100 SXM peaks for bound_ms (NVIDIA's data sheet): HBM3 bytes/s, and
 # int32 throughput, 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float64 outside the tensor cores (the posterior's bound)
+PEAK_FP64_FLOPS = 33.5e12
 # int32 operations per DP cell, counted from each recurrence (the least
 # the function needs; the kernels execute more): pass 1 scores one cell in
 # about 12 (score pick, B gap, clamp, tilted running max, A gap, best);
@@ -247,13 +257,14 @@ GENOME_PAD, READ_PAD = -1, -2
 
 def launch_counters() -> dict:
     """Each kernel's launch counter, by the names of KERNELS."""
-    from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
-                                      sw_gapless, sw_vector)
+    from shrimp_tpu_torch.ops import (candidates_device, post_sw, sw_full,
+                                      sw_full_cs, sw_gapless, sw_vector)
     return {"sw_vector": sw_vector.LAUNCHES,
             "sw_vector_cs": sw_vector.CS_LAUNCHES,
             "sw_full": sw_full.LAUNCHES, "sw_full_cs": sw_full_cs.LAUNCHES,
             "sw_gapless": sw_gapless.LAUNCHES,
-            "candidates_device": candidates_device.LAUNCHES}
+            "candidates_device": candidates_device.LAUNCHES,
+            "post_sw": post_sw.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -445,10 +456,11 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from shrimp_tpu_torch import _build
-    from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
-                                      sw_gapless, sw_vector)
+    from shrimp_tpu_torch.ops import (candidates_device, post_sw, sw_full,
+                                      sw_full_cs, sw_gapless, sw_vector)
     t0 = time.time()
-    mods = (sw_vector, sw_full, sw_full_cs, sw_gapless, candidates_device)
+    mods = (sw_vector, sw_full, sw_full_cs, sw_gapless, candidates_device,
+            post_sw)
     _build.load_all(m.__name__.rsplit(".", 1)[1] for m in mods)
     for m in mods:
         m._lib()
@@ -1157,6 +1169,56 @@ def phase_kernels_cs() -> None:
             n += 1
     torch.cuda.synchronize()
     log(f"kernels: sw_full_cs equal to its plain version in {n} cases")
+    _check_post_sw(rng)
+
+
+def _check_post_sw(rng) -> None:
+    """The colour-space posterior against its plain version on the edges
+    of utils/post_sw_cases.py (both quality scales, a quality offset,
+    reads without qualities, R up to the global-scratch tier): qv exact,
+    the posterior within a relative 1e-12 and 0 in the same rows."""
+    import torch
+
+    from shrimp_tpu_torch.ops import post_sw
+    from shrimp_tpu_torch.ops.params import ScoreProbs
+    from shrimp_tpu_torch.utils import post_sw_cases
+    probs = ScoreProbs.from_scores(_cs_params()[0], True)
+    n = 0
+    for R, N in ((24, 300), (56, 5000), (400, 64)):
+        for off, quals, sanger in ((0, "mixed", True), (0, "mixed", False),
+                                   (2, "mixed", True), (0, "none", True)):
+            c = post_sw_cases.packed_case(rng, N, R, qual_vector_offset=off,
+                                          quals=quals)
+            kw = dict(qual_delta=post_sw_cases.QUAL_DELTA,
+                      qual_vector_offset=off, use_sanger_qvs=sanger)
+            want = post_sw.post_sw_packed_plain(*c["args"], probs, **kw)
+            got = post_sw.post_sw_packed_cuda(
+                *[a.cuda() for a in c["args"]], probs, **kw)
+            _check_posterior(got, want, f"post_sw R={R} off={off} "
+                             f"quals={quals} sanger={sanger}")
+            n += 1
+    torch.cuda.synchronize()
+    log(f"kernels: post_sw equal to its plain version in {n} cases")
+
+
+def _check_posterior(got, want, what: str) -> float:
+    """Raise unless the kernel's (posterior, qv) are the plain version's:
+    qv exact, the posterior within a relative 1e-12 (the card's exp and
+    log against the host's) and 0 in the same rows; returns the largest
+    relative difference."""
+    p_got, q_got = (t.cpu().numpy() for t in got)
+    p_want, q_want = (t.cpu().numpy() for t in want)
+    if not np.array_equal(q_got, q_want):
+        raise AssertionError(f"{what}: qv differs in "
+                             f"{int((q_got != q_want).sum())} bytes")
+    if not np.array_equal(p_got == 0, p_want == 0):
+        raise AssertionError(f"{what}: posterior rows differ")
+    rel = float((np.abs(p_got - p_want)
+                 / np.where(p_want == 0, 1.0, np.abs(p_want))).max(
+        initial=0.0))
+    if rel > 1e-12:
+        raise AssertionError(f"{what}: posterior off by {rel:.3g} relative")
+    return rel
 
 
 # (program name, flags, reads, genome, golden) of the gapless goldens,
@@ -1552,7 +1614,7 @@ def phase_size_cs(device: dict, idx, reads, truth,
     import torch
 
     from shrimp_tpu_torch.pipeline.options import MapperConfig
-    from shrimp_tpu_torch.ops import sw_full_cs, sw_vector
+    from shrimp_tpu_torch.ops import post_sw, sw_full_cs, sw_vector
     from shrimp_tpu_torch.pipeline.mapper import Mapper
 
     cs, _ = _cs_params()
@@ -1569,13 +1631,14 @@ def phase_size_cs(device: dict, idx, reads, truth,
                     lambda a: a[2].shape[0])
     rec2 = Recorder(sw_full_cs, "sw_full_cs_and_traceback_packed_cuda",
                     lambda a: a[0].shape[0])
+    rec3 = Recorder(post_sw, "post_sw_packed_cuda", lambda a: a[0].shape[0])
     reset_launches()
-    with rec1, rec2:
+    with rec1, rec2, rec3:
         t0 = time.time()
         results = list(mapper.map_stream(iter(reads), SIZE_BATCH))
         torch.cuda.synchronize()
         map_secs = time.time() - t0
-    launches = read_launches(("sw_vector_cs", "sw_full_cs"))
+    launches = read_launches(("sw_vector_cs", "sw_full_cs", "post_sw"))
     peak = torch.cuda.max_memory_allocated()
     n_done = len(results)
     if n_done != SIZE_CS_READS:
@@ -1593,6 +1656,7 @@ def phase_size_cs(device: dict, idx, reads, truth,
         "post_sw_secs": round(mapper.tel.fwbw.secs, 3),
         "pass1_windows": mapper.stats["pass1_windows"],
         "pass2_windows": mapper.stats["pass2_windows"],
+        "posterior_rows": mapper.stats["posterior_rows"],
         "launches": launches,
         "max_memory_allocated": int(peak),
         **sam_digest(_sam_lines(mapper, results)),
@@ -1613,8 +1677,8 @@ def phase_size_cs(device: dict, idx, reads, truth,
         f"the host CPU)")
     legacy = [ln for re_e, hits in results[:SIZE_CS_PLAIN]
               for ln in mapper.legacy_records(re_e, hits)]
-    return launches, {"sw_vector_cs": rec1.args, "sw_full_cs": rec2.args}, \
-        stats, legacy
+    return launches, {"sw_vector_cs": rec1.args, "sw_full_cs": rec2.args,
+                      "post_sw": (rec3.args, rec3.kw)}, stats, legacy
 
 
 def time_kernels_cs(args: dict, reps: int = 20) -> dict:
@@ -1661,11 +1725,71 @@ def time_kernels_cs(args: dict, reps: int = 20) -> dict:
             **_band_bound("sw_full_cs", (qr4[:, 0].cpu() != READ_PAD).sum(1),
                           bxmin, bxmax, (gb, qr4, xover, rev, bxmin, bxmax),
                           (s_got, o_got))}
+    if "post_sw" in args:
+        out["post_sw"] = time_post_sw(*args["post_sw"], reps)
     for name, row in out.items():
         if row["max_abs_err"]:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{row}")
     return out
+
+
+# float64 operations a state and column of the posterior, frozen (see
+# time_post_sw)
+POST_SW_FLOPS = 26
+
+
+def time_post_sw(a: tuple, kw: dict, reps: int = 20) -> dict:
+    """The colour-space posterior (CUDA events, and each call's device
+    work behind a spin kernel) against its plain version (host clock, CPU
+    tensors) on a recorded launch; qv must agree exactly and the
+    posterior within a relative 1e-12.
+
+    Bound: the larger of its bytes over 3.35 TB/s and its float64
+    operations over 33.5 TFLOP/s (the H100 SXM's float64 rate outside the
+    tensor cores).  Operations, frozen at 26 a state (16) and column of a
+    computed row (its read-consuming columns, stats column 7), the
+    exponential and the logarithm one each: forwards 10 (the node prior's
+    two subtractions, the exponential, three adds of the predecessors, the
+    logarithm, its subtraction, the column minimum, the rescale); backwards
+    10 (the node prior's two, the add of the next backward value, the
+    exponential, three adds of the successors, the logarithm, the minimum,
+    the rescale); the posterior 6 (four adds and subtractions of the
+    exponent, the exponential, the add into its letter).  Bytes: each row's
+    threshold, read and four stats words, the ops, window letters and
+    decoding bytes of a computed row's alignment (ops_len, gmapped,
+    rmapped), its read's colours and quality bytes up to its last column
+    (read_start + rmapped) and two flag bytes, the emission table, and the
+    outputs (8 bytes and R quality bytes a row)."""
+    from shrimp_tpu_torch.ops import post_sw
+    got = post_sw.post_sw_packed_cuda(*a, **kw)
+
+    def call():
+        return post_sw.post_sw_packed_cuda(*a, **kw)
+
+    ms = cuda_ms(call, reps)
+    dev_ms = device_ms(call, reps)
+    ca = _cpu(a)
+    plain_ms, want = host_ms(lambda: post_sw.post_sw_packed_plain(*ca, **kw))
+    rel = _check_posterior(got, want, "post_sw at size-cs")
+    stats, thresh = ca[1].numpy(), ca[5].numpy()
+    N, R = int(ca[3].shape[0]), int(ca[3].shape[2])
+    keep = (stats[:, 0] > 0) & (stats[:, 0] >= thresh)
+    st = stats[keep].astype(np.int64)
+    cols = int(st[:, 7].sum())
+    nbytes = (N * 6 * 4 + int(st[:, 9].sum()) + int(st[:, 8].sum()) + cols
+              + 2 * int((st[:, 1] + st[:, 7]).sum()) + 2 * len(st)
+              + 8 * (2 * 258 + 2) + N * (8 + R))
+    flops = POST_SW_FLOPS * 16 * cols
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP64_FLOPS * 1e3
+    return {"shape": {"rows": N, "computed": int(keep.sum()), "R": R,
+                      "columns": cols, "plan": post_sw.launch_plan(R)},
+            "max_abs_err": max_abs_err(got[1], want[1]),
+            "posterior_max_rel_err": rel, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "fp64_ops": flops}
 
 
 def time_gapless(a: tuple, cs: bool, reps: int = 20) -> dict:

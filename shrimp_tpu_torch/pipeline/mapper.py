@@ -50,8 +50,8 @@ from shrimp_tpu_torch.pipeline import candidates_batch as cb
 from shrimp_tpu_torch.pipeline.options import (MapperConfig, ReadMappingOptions,
                                          abs_or_pct, is_absolute)
 from shrimp_tpu_torch.utils import telemetry
-from shrimp_tpu_torch.ops import (candidates_device, sw_full, sw_full_cs,
-                                  sw_gapless, sw_vector)
+from shrimp_tpu_torch.ops import (candidates_device, post_sw, sw_full,
+                                  sw_full_cs, sw_gapless, sw_vector)
 
 # bytes of GENOME_PAD appended to the resident device plane (the JAX
 # package's layout, kept so the two planes are byte-identical)
@@ -220,7 +220,7 @@ class Mapper:
                       "total_matches": 0, "pass1_windows": 0,
                       "pass2_windows": 0, "dup_matches_pruned": 0,
                       "reads_dropped_max_aln": 0, "reads_matched_conf": 0,
-                      "device_l3_fallbacks": 0}
+                      "device_l3_fallbacks": 0, "posterior_rows": 0}
         self._dev_l3 = None
         # K10's device planes, kept between calls (ops/candidates_device.py)
         self._dev_l3_ws = candidates_device.L3Workspace()
@@ -1100,7 +1100,7 @@ class Mapper:
 
             dev_in = [self._to_device(a) for a in (gb, rb, rev, band_xmin,
                                                      band_xmax)]
-            qr4 = None
+            qr4 = qr4_d = None
             if cfg.colour_space:
                 qr4 = np.full((N, 4, R), sw_vector.READ_PAD, np.int8)
                 xover = np.full((N, R), cfg.params.crossover, np.int32)
@@ -1111,8 +1111,9 @@ class Mapper:
                         xover[n, :e.read_len] = e.crossover_score
                 # the 4-layer DP: the same packed form over the full band
                 # where the JAX package switches to its unbanded kernel
+                qr4_d = self._to_device(qr4)
                 stats_d, ops_d = sw_full_cs.sw_full_cs_and_traceback_packed(
-                    dev_in[0], self._to_device(qr4), self._to_device(xover),
+                    dev_in[0], qr4_d, self._to_device(xover),
                     *dev_in[2:], cfg.params,
                     local_alignment=not cfg.global_alignment,
                     taboo_len=cfg.indel_taboo_len, W=W)
@@ -1125,7 +1126,8 @@ class Mapper:
                 # it under f1
                 self.tel.f1.add(N, int((w_len * rlen).sum()))
             return {"stats_d": stats_d, "ops_d": ops_d, "qr4": qr4,
-                    "gb": gb, "N": N, "gen_st": gen_st, "g_off": g_off,
+                    "qr4_d": qr4_d, "gb": gb, "gb_d": dev_in[0],
+                    "N": N, "gen_st": gen_st, "g_off": g_off,
                     "w_len": w_len, "cn": cn,
                     "f2_cells_rows": np.asarray(_f2_cells, np.int64)}
 
@@ -1133,21 +1135,31 @@ class Mapper:
         with self.tel.stage("pass2_finish"):
             cfg = self.cfg
             N = ctx["N"]
+            # pass 2's thresholds (abs_or_pct per row, vectorized)
+            x = opts.pass2.threshold
+            thresh = (np.full(N, -x) if is_absolute(x)
+                      else sel["score_max"].astype(np.int64) * (x / 100.0))
+            post_d = None
+            if cfg.colour_space and cfg.compute_mapping_qualities:
+                # the posterior on K7+K8's outputs, in flight with them
+                with self.tel.stage("post_sw") as post:
+                    post_d = self._posterior_launch(entries, sel, ctx,
+                                                    thresh)
+                self.tel.fwbw.add(0, 0, post.last)
             with self.tel.stage("device_fetch") as fetch:
                 stats = ctx["stats_d"].cpu().numpy()[:N]
                 ops_all = ctx["ops_d"].cpu().numpy()[:N]
+                if post_d is not None:
+                    post_d = tuple(t.cpu().numpy() for t in post_d)
             self.tel.f2.add(0, 0, fetch.last)
             # scalar-SW invocations: in LS the reference only runs
             # sw_full_ls when the per-hit vector re-score clears the pass2
             # threshold (mapping.c:406-415); that re-score equals the pass1
             # vector score
-            _smax = sel["score_max"].astype(np.int64)
             if cfg.colour_space or cfg.gapless:
                 _qual = np.ones(N, bool)
             else:
-                _thr = np.array([abs_or_pct(opts.pass2.threshold, s)
-                                 for s in _smax])
-                _qual = sel["score_vector"].astype(np.int64) >= _thr
+                _qual = sel["score_vector"].astype(np.int64) >= thresh
             self.tel.f2.add(int(_qual.sum()),
                             int(ctx["f2_cells_rows"][_qual].sum()))
             tb = {"score": stats[:, 0],
@@ -1158,58 +1170,73 @@ class Mapper:
                   "ops_len": stats[:, 9], "ops": ops_all,
                   "crossovers": (stats[:, 10] if cfg.colour_space
                                  else None)}
-            cs = (self._pass2_posteriors(entries, sel, opts, ctx, tb)
+            cs = (self._pass2_posteriors(ctx, tb, thresh, post_d)
                   if cfg.colour_space else None)
             with self.tel.stage("pass2_select"):
                 return self._pass2_select(sel, opts, ctx, tb, cs)
 
-    def _pass2_posteriors(self, entries, sel, opts, ctx, tb):
-        """Colour space: the raw-threshold survivors' alignments rendered,
-        and the posterior HMM run for all of them in one vectorized batch
-        (bit-equal to the per-hit pass); returns (renders, posteriors) by
-        row."""
+    def _posterior_launch(self, entries, sel, ctx, thresh):
+        """Launch the colour-space posterior (`post_sw_packed`) on pass 2's
+        outputs where they lie: the rows' windows and letter decodings of
+        the dispatch, and the batch's reads (colours, quality bytes, their
+        use, primers) uploaded once and gathered by each row's read.
+        Returns (posterior, qv) on the mapper's device, still in flight."""
         cfg = self.cfg
-        from shrimp_tpu_torch.ops import post_sw as post_sw_mod
-        rid = sel["rid"]
-        score = tb["score"]
-        score_max = sel["score_max"].astype(np.int64)
+        B = len(entries)
+        R = ctx["qr4"].shape[2]
+        colours = np.full((B, R), sw_vector.READ_PAD, np.int8)
+        has_qual = np.zeros(B, bool)
+        initbp = np.zeros(B, np.int8)
+        quals = [None] * B
+        for b, e in enumerate(entries):
+            colours[b, :e.read_len] = e.read[0]
+            initbp[b] = e.initbp
+            if e.qual is not None and not cfg.ignore_qvs:
+                has_qual[b] = True
+                quals[b] = e.qual.encode("latin-1")
+        # wide enough for every column a read can have, so a quality string
+        # shorter than its read reads zeros, never past the matrix
+        Q = max([len(q) for q in quals if q is not None]
+                + [cfg.qual_vector_offset + R])
+        qual = np.zeros((B, Q), np.uint8)
+        for b, q in enumerate(quals):
+            if q is not None:
+                qual[b, :len(q)] = np.frombuffer(q, np.uint8)
+        thr = np.ceil(thresh).astype(np.int32)
+        return post_sw.post_sw_packed(
+            ctx["ops_d"], ctx["stats_d"], ctx["gb_d"], ctx["qr4_d"],
+            self._to_device(sel["rid"].astype(np.int32)),
+            self._to_device(thr), self._to_device(colours),
+            self._to_device(qual), self._to_device(has_qual),
+            self._to_device(initbp), self.probs, qual_delta=cfg.qual_delta,
+            qual_vector_offset=cfg.qual_vector_offset)
+
+    def _pass2_posteriors(self, ctx, tb, thresh, post):
+        """Colour space: the raw-threshold survivors' alignments rendered
+        and, with mapping qualities, their posteriors and QUAL strings from
+        the packed posterior's read-back `post` (posterior, qv); returns
+        (renders, posteriors) by row."""
+        score = tb["score"].astype(np.int64)
+        rows = np.flatnonzero((score > 0) & (score >= thresh))
         gb_np, qr4 = ctx["gb"], ctx["qr4"]
-        cs_posteriors: dict[int, tuple[float, str]] = {}
         cs_renders: dict[int, tuple[str, str]] = {}
-        items = []
-        item_rows = []
-        for n in range(len(rid)):
-            s = int(score[n])
-            if s <= 0:
-                continue
-            thresh = abs_or_pct(opts.pass2.threshold, score_max[n])
-            if s < thresh:
-                continue
-            ops_n = tb["ops"][n, :tb["ops_len"][n]]
-            e = entries[rid[n]]
-            dbal, qral = sw_full_cs.render_alignment_cs(
-                ops_n, gb_np[n], qr4[n],
+        for n in rows.tolist():
+            cs_renders[n] = sw_full_cs.render_alignment_cs(
+                tb["ops"][n, :tb["ops_len"][n]], gb_np[n], qr4[n],
                 int(tb["genome_start"][n]), int(tb["read_start"][n]))
-            cs_renders[n] = (dbal, qral)
-            if cfg.compute_mapping_qualities:
-                q_in = (None if (e.qual is None or cfg.ignore_qvs)
-                        else e.qual)
-                items.append({"colours": e.read[0], "initbp": e.initbp,
-                              "qual": q_in,
-                              "read_start": int(tb["read_start"][n]),
-                              "dbalign": dbal, "qralign": qral})
-                item_rows.append(n)
-        if items:
-            with self.tel.stage("post_sw") as post:
-                res = post_sw_mod.post_sw_batch(
-                    items, self.probs, qual_delta=cfg.qual_delta,
-                    qual_vector_offset=cfg.qual_vector_offset)
+        cs_posteriors: dict[int, tuple[float, str]] = {}
+        if post is not None and len(rows):
+            with self.tel.stage("post_sw") as stage:
+                posterior, qv = post
+                qv33 = qv + np.uint8(33)
+                lens = tb["rmapped"]
+                for n, p in zip(rows.tolist(), posterior[rows].tolist()):
+                    cs_posteriors[n] = (
+                        p, qv33[n, :lens[n]].tobytes().decode("ascii"))
             # post_sw: cells = 16 * alignment columns (sw-post.c:716)
-            self.tel.fwbw.add(
-                len(items), 16 * sum(len(it["dbalign"]) for it in items),
-                post.last)
-            for n, r in zip(item_rows, res):
-                cs_posteriors[n] = r
+            self.tel.fwbw.add(len(rows), 16 * int(tb["ops_len"][rows].sum()),
+                              stage.last)
+            self._bump(posterior_rows=len(rows))
         return cs_renders, cs_posteriors
 
     def _pass2_select(self, sel, opts, ctx, tb, cs):

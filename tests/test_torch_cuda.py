@@ -20,18 +20,20 @@ from shrimp_tpu_torch import _build, dna, gmapper
 from shrimp_tpu_torch import index as gindex
 from shrimp_tpu_torch import seeds as seedmod
 from shrimp_tpu_torch.io import fastx
+from shrimp_tpu_torch import mapq
 from shrimp_tpu_torch.ops import candidates_device as tcd
+from shrimp_tpu_torch.ops import post_sw as tps
 from shrimp_tpu_torch.ops import sw_full as tsf
 from shrimp_tpu_torch.ops import sw_full_cs as tcs
 from shrimp_tpu_torch.ops import sw_gapless as tsg
 from shrimp_tpu_torch.ops import sw_vector as tsv
-from shrimp_tpu_torch.ops.params import SWParams
+from shrimp_tpu_torch.ops.params import ScoreProbs, SWParams
 from shrimp_tpu_torch.pipeline import candidates as cand
 from shrimp_tpu_torch.pipeline import candidates_batch as cb
 from shrimp_tpu_torch.pipeline.candidates import cs_read_ls4
 from shrimp_tpu_torch.pipeline.mapper import Mapper
 from shrimp_tpu_torch.pipeline.options import MapperConfig
-from shrimp_tpu_torch.utils import gapless_cases, golden_cli
+from shrimp_tpu_torch.utils import gapless_cases, golden_cli, post_sw_cases
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LS = SWParams.letter_space()
@@ -480,7 +482,7 @@ def test_cs_goldens_through_the_kernels(cuda_device, genome, reads, gold):
                                  qual_delta=33), device=cuda_device)
     recs = [(r.name, r.seq, r.qual)
             for r in fastx.iter_reads(os.path.join(GOLDEN, reads))]
-    before = (tsv.CS_LAUNCHES.value, tcs.LAUNCHES.value)
+    before = (tsv.CS_LAUNCHES.value, tcs.LAUNCHES.value, tps.LAUNCHES.value)
     lines = [rec.line() for e, hits in m.map_batch(recs)
              for rec in m.sam_records(e, hits)]
     with open(os.path.join(GOLDEN, gold)) as fh:
@@ -488,6 +490,7 @@ def test_cs_goldens_through_the_kernels(cuda_device, genome, reads, gold):
                          if not ln.startswith("@")]
     assert tsv.CS_LAUNCHES.value > before[0]
     assert tcs.LAUNCHES.value > before[1]
+    assert tps.LAUNCHES.value > before[2]
 
 
 @pytest.mark.cuda
@@ -948,6 +951,119 @@ def test_cli_genome_shards_golden_on_the_card(cuda_device):
     assert golden_cli.compared(out, "golden_unpaired.sam") == \
         golden_cli.expected("golden_unpaired.sam")
     assert tsv.LAUNCHES.value > before[0] and tsf.LAUNCHES.value > before[1]
+
+
+CS_PROBS = ScoreProbs.from_scores(CS, True)
+
+
+def _assert_posterior_equal(got, want, stats=None):
+    """The kernel's (posterior, qv) against the plain version's: qv byte
+    for byte, the posterior within a relative 1e-12 (the card's exp and
+    log against the host's), 0 in the same rows; with `stats`, the
+    posterior scores equal too."""
+    p_got, q_got = (t.cpu().numpy() for t in got)
+    p_want, q_want = (t.numpy() for t in want)
+    assert np.array_equal(q_got, q_want)
+    assert np.array_equal(p_got == 0, p_want == 0)
+    np.testing.assert_allclose(p_got, p_want, rtol=1e-12, atol=0)
+    if stats is not None:
+        for n in np.flatnonzero(p_want):
+            assert mapq.posterior_score(float(p_got[n]), int(stats[n, 7]),
+                                        CS_PROBS) == mapq.posterior_score(
+                float(p_want[n]), int(stats[n, 7]), CS_PROBS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(24, 200), (56, 3000), (400, 64)],
+                         ids=["R24", "R56", "R400_global_tier"])
+@pytest.mark.parametrize("case", ["sanger", "non_sanger", "qual_offset",
+                                  "no_quals"])
+def test_post_sw_packed_equals_plain(cuda_device, case, R, N):
+    """The posterior kernel against its plain version on the edges of
+    utils/post_sw_cases.py, one launch a call; R 400 keeps the forward
+    sweep in the global scratch."""
+    off, quals, sanger = {"sanger": (0, "mixed", True),
+                          "non_sanger": (0, "mixed", False),
+                          "qual_offset": (2, "mixed", True),
+                          "no_quals": (0, "none", True)}[case]
+    c = post_sw_cases.packed_case(np.random.default_rng(R + off), N, R,
+                                  qual_vector_offset=off, quals=quals)
+    kw = dict(qual_delta=post_sw_cases.QUAL_DELTA, qual_vector_offset=off,
+              use_sanger_qvs=sanger)
+    want = tps.post_sw_packed_plain(*c["args"], CS_PROBS, **kw)
+    assert tps.launch_plan(R)["staged"] == (R <= 292)
+    before = tps.LAUNCHES.value
+    got = tps.post_sw_packed(*[a.to(cuda_device) for a in c["args"]],
+                             CS_PROBS, **kw)
+    assert tps.LAUNCHES.value == before + 1
+    _assert_posterior_equal(got, want, c["args"][1].numpy())
+
+
+@pytest.mark.cuda
+def test_post_sw_packed_wrapper_refuses(cuda_device):
+    """A CPU tensor among CUDA ones, a wrong dtype and a non-contiguous
+    tensor are refused before any launch; an empty launch launches
+    nothing."""
+    c = post_sw_cases.packed_case(np.random.default_rng(3), 16, 24)
+    dev = [a.to(cuda_device) for a in c["args"]]
+    before = tps.LAUNCHES.value
+    for k, bad in ((4, dev[4].cpu()), (5, dev[5].to(torch.int64)),
+                   (3, dev[3].transpose(1, 2).contiguous().transpose(1, 2)),
+                   (8, dev[8].to(torch.uint8))):
+        args = list(dev)
+        args[k] = bad
+        with pytest.raises((ValueError, TypeError)):
+            tps.post_sw_packed_cuda(*args, CS_PROBS)
+    with pytest.raises(ValueError):
+        tps.post_sw_packed_cuda(*c["args"], CS_PROBS)
+    empty = [a[:0] if k < 6 else a for k, a in enumerate(dev)]
+    p, q = tps.post_sw_packed_cuda(*empty, CS_PROBS)
+    assert p.shape == (0,) and q.shape == (0, 24)
+    assert tps.LAUNCHES.value == before
+
+
+@pytest.mark.cuda
+def test_post_sw_on_size_cs_reads(cuda_device, monkeypatch):
+    """size-cs's reads (synth.make_cs_reads, seed 23) on a 4 Mbp genome
+    of its generator: every posterior launch of the card's Mapper against
+    the plain version on the same inputs, and the SAM lines equal to the
+    CPU Mapper's."""
+    from shrimp_tpu_torch.utils import synth
+    chroms = synth.make_genome(np.random.default_rng(20260817), 4_000_000)
+    idx = gindex.build_index(
+        [fastx.Contig(name=f"chr{i + 1}", codes=g)
+         for i, g in enumerate(chroms)], seedmod.make_seed_set(None),
+        colour_space=True)
+    max_w = max(s.weight for s in idx.seed_set.seeds)
+    idx.trim(max(1000, (100 * idx.total_len) // (4 ** max_w)))
+    reads, _ = synth.make_cs_reads(idx, np.random.default_rng(23), 1024)
+    calls = []
+    orig = tps.post_sw_packed_cuda
+
+    def record(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(tps, "post_sw_packed_cuda", record)
+
+    def lines(device):
+        m = Mapper(idx, MapperConfig(colour_space=True, params=CS,
+                                     qual_delta=33), device=device)
+        res = list(m.map_stream(iter(reads), 512))
+        return m, [rec.line() for e, hits in res
+                   for rec in m.sam_records(e, hits)]
+
+    card, got = lines(cuda_device)
+    assert len(calls) == 2
+    rows = 0
+    for args, kw, out in calls:
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        want = tps.post_sw_packed_plain(*cpu_args, **kw)
+        _assert_posterior_equal(out, want, cpu_args[1].numpy())
+        rows += int((want[0] != 0).sum())
+    assert card.stats["posterior_rows"] == rows > 500
+    assert got == lines("cpu")[1]
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

@@ -32,7 +32,7 @@ from shrimp_tpu_torch.pipeline import candidates as cand
 from shrimp_tpu_torch.pipeline import candidates_batch as cb
 from shrimp_tpu_torch.pipeline.mapper import Mapper
 from shrimp_tpu_torch.pipeline.options import MapperConfig
-from shrimp_tpu_torch.utils import synth
+from shrimp_tpu_torch.utils import post_sw_cases, synth
 
 # the JAX package's bench scripts: bench.py at the root of the repo,
 # bench_grid.py under benchmarks/
@@ -133,28 +133,47 @@ def test_anchors_and_hit_list_equal(colour_space, st, use_regions):
 
 def test_post_sw_batch_equal_on_colour_space(monkeypatch):
     """The posterior forward/backward of every colour-space hit of the
-    golden_cs reads, as the port's Mapper hands them over."""
+    golden_cs reads, as the port's Mapper hands them over: what the packed
+    posterior computed from K7+K8's outputs equals the JAX package's
+    post_sw_batch on the alignments rendered, and so does the port's
+    post_sw_batch."""
     idx = gindex.build_index(list(fastx.iter_contigs(
         os.path.join(GOLDEN, "golden_genome.fa"))), colour_space=True)
     calls = []
-    orig = post_sw.post_sw_batch
+    orig = post_sw.post_sw_packed
 
-    def record(items, probs, **kw):
-        calls.append((items, kw))
-        return orig(items, probs, **kw)
+    def record(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
 
-    monkeypatch.setattr(post_sw, "post_sw_batch", record)
+    monkeypatch.setattr(post_sw, "post_sw_packed", record)
     m = Mapper(idx, MapperConfig(colour_space=True,
                                  params=SWParams.colour_space(),
                                  qual_delta=33), device="cpu")
     m.map_batch([(r.name, r.seq, r.qual) for r in fastx.iter_reads(
         os.path.join(GOLDEN, "golden_reads_cs.fq"))])
-    assert calls and sum(len(items) for items, _ in calls) > 100
     probs = ScoreProbs.from_scores(SWParams.colour_space(), True)
     jprobs = JaxProbs.from_scores(JaxParams.colour_space(), True)
-    for items, kw in calls:
-        assert orig(items, probs, **kw) == \
-            jpost_sw.post_sw_batch(items, jprobs, **kw)
+    n_items = 0
+    for args, kw, (posterior, qv) in calls:
+        colours, qual, has_qual = (t.numpy() for t in args[6:9])
+        read_len = (colours != post_sw_cases.READ_PAD).sum(axis=1).tolist()
+        off = kw["qual_vector_offset"]
+        rows, items = post_sw_cases.rendered_items({
+            "args": list(args[:10]), "read_len": read_len,
+            "quals": [bytes(qual[b, :off + n]).decode("latin-1")
+                      if has_qual[b] else None
+                      for b, n in enumerate(read_len)]})
+        rmapped = args[1][:, 7].numpy()
+        got = [(float(posterior[n]),
+                (qv[n, :rmapped[n]].numpy() + 33).tobytes().decode())
+               for n in rows]
+        want = jpost_sw.post_sw_batch(items, jprobs, **kw)
+        assert got == want
+        assert post_sw.post_sw_batch(items, probs, **kw) == want
+        n_items += len(items)
+    assert n_items > 100
 
 
 @pytest.mark.parametrize("reverse", [False, True])
