@@ -5,7 +5,9 @@ check of what the window produced, and the result line.
         --seconds <s> --trace <0|1>
 
 The last line of standard output is the result (JSON); the numbers
-compared to decide `correct` are the last lines of standard error.
+compared to decide `correct` are the last lines of standard error.  A
+cell over several cards (`chips` > 1) runs as ranks, one process a card
+(`harness/ranks.py`); a cell on one card runs here, in this process.
 """
 
 from __future__ import annotations
@@ -52,8 +54,16 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
-class Run:
-    """The state of one run, filled as it goes."""
+class RankFailed(RuntimeError):
+    """A rank of a cell over several cards exited nonzero, or did not
+    reach or end its window in time."""
+
+
+class BaseRun:
+    """What every run of a cell has: its cell, seed and set-up parts,
+    its inputs (`prepare_inputs`), and the check of the window's items
+    of every process that mapped (`shares`: one on one card, a rank a
+    card over several, `harness/ranks.py`)."""
 
     def __init__(self, cell, seed: int, seconds: float, trace: bool,
                  device: str, t_start: float):
@@ -65,6 +75,94 @@ class Run:
         self.breakdown = None
 
     # -- set-up ----------------------------------------------------------
+    def prepare_inputs(self):
+        """The genome, and the program's index on disk (built if
+        missing)."""
+        import shrimp_tpu_torch  # noqa: F401  (fails first without it)
+
+        from harness import data, program
+        conf = self.cell.config
+        t = time.perf_counter()
+        self.genome = data.ensure_genome(conf, self.cell.root)
+        self.setup["genome_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        self.index_prefix = data.index_prefix(conf, self.cell.root)
+        if not os.path.exists(self.index_prefix + ".mmap.json"):
+            program.build_index(conf, self.genome, self.index_prefix)
+        self.setup["index_s"] = time.perf_counter() - t
+
+    # -- the check -------------------------------------------------------
+    def sample(self):
+        """`sample` items drawn from the seed among the window's items of
+        every share, each with the program's lines."""
+        import numpy as np
+
+        from harness import data
+        from reference.judge import Item
+        shares = self.shares()
+        edges = np.cumsum([0] + [n for _, n in shares])
+        k = min(int(self.cell.traffic["sample"]), int(edges[-1]))
+        rng = data.rng_for(self.seed, 1)
+        picks = np.sort(rng.choice(int(edges[-1]), size=k, replace=False))
+        want = {}
+        for p in picks:
+            r = int(np.searchsorted(edges, p, side="right")) - 1
+            pool = shares[r][0]
+            g = self.window_first + int(p - edges[r])
+            P = len(pool.items)
+            item = pool.items[g % P]
+            reads = list(item) if pool.kind == "pairs" else [item]
+            name = (reads[0][0].rsplit("/", 1)[0] + f"_{g // P}"
+                    if pool.kind == "pairs"
+                    else f"{reads[0][0]}_{g // P}")
+            want[name] = Item(reads=reads, truth=int(pool.truth[g % P]),
+                              lines=[])
+        for text in self.texts:
+            for ln in text.split("\n"):
+                q = ln.split("\t", 1)[0]
+                if q in want:
+                    want[q].lines.append(ln)
+        return list(want.values())
+
+    def judge_args(self) -> tuple:
+        conf, traffic = self.cell.config, self.cell.traffic
+        paired = traffic.get("pairing")
+        if paired:
+            paired = {"limits": (paired["min_insert"], paired["max_insert"]),
+                      "mode": paired["mode"],
+                      "insert": tuple(traffic["true_insert"])}
+        return self.genome, conf["mode"], paired, int(conf["qual_delta"])
+
+    def check(self) -> dict:
+        from reference import judge
+        t = time.perf_counter()
+        self.tally = judge.judge(*self.judge_args(), self.sample())
+        self.check_s = time.perf_counter() - t
+        return self.tally.numbers()
+
+    def judge_numbers(self) -> dict:
+        """The numbers compared, for the window just driven."""
+        from reference import judge
+        return judge.judge(*self.judge_args(), self.sample()).numbers()
+
+    def readings(self) -> dict:
+        """The numbers of the program and of the controls (the reference
+        in its place at lower precision) on the same sampled items."""
+        from reference import judge
+        items = self.sample()
+        out = {"program": judge.judge(*self.judge_args(), items).numbers()}
+        for tag, prec in (("control", judge.LOW),
+                          ("control_float32", judge.LOW_FLOAT)):
+            out[tag] = judge.control(*self.judge_args(), items,
+                                     prec).numbers()
+        return out
+
+
+class Run(BaseRun):
+    """The state of one run, filled as it goes: this process maps the
+    reads on its card."""
+
+    # -- set-up ----------------------------------------------------------
     def prepare(self):
         # the interpreter, torch and the card's start, before the cell's
         # own set-up
@@ -73,41 +171,73 @@ class Run:
         self.prepare_pool(self.seed)
 
     def prepare_program(self):
-        """The genome, the program's index and its mapper."""
-        import shrimp_tpu_torch  # noqa: F401  (fails first without it)
-
-        from harness import data, program
-        conf, traffic = self.cell.config, self.cell.traffic
+        """The inputs, the program's index attached, and its mapper."""
+        from harness import program
+        self.prepare_inputs()
         t = time.perf_counter()
-        self.genome = data.ensure_genome(conf, self.cell.root)
-        self.setup["genome_s"] = time.perf_counter() - t
+        self.idx = program.load_index(self.index_prefix)
+        self.setup["index_s"] += time.perf_counter() - t
         t = time.perf_counter()
-        prefix = data.index_prefix(conf, self.cell.root)
-        if not os.path.exists(prefix + ".mmap.json"):
-            program.build_index(conf, self.genome, prefix)
-        self.idx = program.load_index(prefix)
-        self.setup["index_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        self.mapper = program.make_mapper(conf, traffic, self.idx,
+        self.mapper = program.make_mapper(self.cell.config,
+                                          self.cell.traffic, self.idx,
                                           device=self.device)
         self.setup["mapper_s"] = time.perf_counter() - t
 
     def prepare_pool(self, seed: int):
         """The seed's reads, kept out of the program's garbage
         collections: the pool lives for the whole run."""
-        from harness import data
         self.seed = seed
         t = time.perf_counter()
         gc.unfreeze()
         self.pool = None
         gc.collect()
-        self.pool = data.make_pool(
-            self.cell.traffic, self.genome, seed,
-            data.pool_path(self.cell.config, self.cell.traffic,
-                           self.cell.root))
+        self.pool = self.make_pool(seed)
         self.setup["pool_s"] = time.perf_counter() - t
         gc.collect()
         gc.freeze()
+
+    def make_pool(self, seed: int):
+        from harness import data
+        return data.make_pool(
+            self.cell.traffic, self.genome, seed,
+            data.pool_path(self.cell.config, self.cell.traffic,
+                           self.cell.root))
+
+    # -- the run ---------------------------------------------------------
+    def go(self, threads: dict):
+        """Set-up, the host line, warm-up and window, and the card's
+        peak memory."""
+        import torch
+        on_card = self.device != "cpu"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        self.prepare()
+        self.host = host_line(self, threads)
+        print("portbench " + json.dumps(self.host), flush=True)
+        self.drive()
+        self.peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    def release(self):
+        """The program's state goes before the reference runs."""
+        import torch
+        del self.mapper, self.idx
+        gc.unfreeze()
+        gc.collect()
+        if self.device != "cpu":
+            torch.cuda.empty_cache()
+
+    def summary(self) -> list[str]:
+        """The window's details, for standard error."""
+        rec, ms = self.record, sorted(self.record["batch_ms"])
+        return [f"portbench window: {rec['batches']} batches, "
+                f"{rec['reads']} reads in {rec['window_s']:.3f} s "
+                f"(batch ms min {ms[0]:.1f} median {ms[len(ms) // 2]:.1f} "
+                f"max {ms[-1]:.1f}; process CPU "
+                f"{self.host_window['process_cpu_s']:.2f} s, stolen "
+                f"{self.host_window['steal_s']:.2f} s); set-up "
+                f"{self.setup_s:.3f} s (warm-up {self.setup['warmup_s']:.3f}"
+                f" s); check {self.check_s:.2f} s of {self.tally.reads} "
+                f"reads, {self.tally.records} records"]
 
     # -- batches ---------------------------------------------------------
     def batches(self, stream, n_items: int):
@@ -164,15 +294,15 @@ class Run:
                     hooks[m["name"]] = mod.HOOKS
             prof = self.profiler()
             prof.__enter__()
-            ranges = trace.stage_ranges()
-            ranges.__enter__()
             hooked = trace.launch_hooks(hooks, launches)
             hooked.__enter__()
+        self.meet()
+        if self.trace:
             span = torch.profiler.record_function("bench.window")
             span.__enter__()
         self.window_first = int(traffic["warmup_batches"]) * B
         host0 = host_times()
-        t0 = time.perf_counter()
+        t0 = self.t0 = time.perf_counter()
         self.setup_s = t0 - self.t_start
         texts, done_at, sam_s = [], [], 0.0
         self.trace_on = self.trace
@@ -188,7 +318,6 @@ class Run:
         if self.trace:
             span.__exit__(None, None, None)
             hooked.__exit__(None, None, None)
-            ranges.__exit__(None, None, None)
             if self.device != "cpu":
                 torch.cuda.synchronize()
             prof.__exit__(None, None, None)
@@ -216,6 +345,14 @@ class Run:
         if prof is not None:
             self.reduce_profile(prof)
 
+    def device_name(self) -> str:
+        import torch
+        return (torch.cuda.get_device_name(torch.device(self.device))
+                if self.device != "cpu" else "cpu")
+
+    def meet(self):
+        """Where the window opens; one process meets no one."""
+
     def profiler(self):
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
@@ -232,70 +369,15 @@ class Run:
         self.record["device"] = {
             "busy_s": red["busy_s"], "window_s": (hi - lo) / 1e6,
             "by_name": red["by_name"], "all_by_name": red["all_by_name"]}
+        self.idle_by_range = red["idle_by_range"]
         self.breakdown = {"device_ops": trace.top(red["by_name"]),
                           "idle_gaps": trace.top(red["idle_by_range"])}
 
-    # -- the check -------------------------------------------------------
-    def sample(self):
-        """The sampled items of the window with the program's lines."""
-        from harness import data
-        from reference.judge import Item
-        traffic = self.cell.traffic
-        B = int(traffic["batch_size"])
-        n = len(self.texts) * B
-        k = min(int(traffic["sample"]), n)
-        rng = data.rng_for(self.seed, 1)
-        picks = sorted(self.window_first
-                       + rng.choice(n, size=k, replace=False))
-        P = len(self.pool.items)
-        want = {}
-        for g in picks:
-            item = self.pool.items[g % P]
-            reads = list(item) if self.pool.kind == "pairs" else [item]
-            name = (reads[0][0].rsplit("/", 1)[0] + f"_{g // P}"
-                    if self.pool.kind == "pairs"
-                    else f"{reads[0][0]}_{g // P}")
-            want[name] = Item(reads=reads, truth=int(self.pool.truth[g % P]),
-                              lines=[])
-        for text in self.texts:
-            for ln in text.split("\n"):
-                q = ln.split("\t", 1)[0]
-                if q in want:
-                    want[q].lines.append(ln)
-        return list(want.values())
-
-    def judge_args(self) -> tuple:
-        conf, traffic = self.cell.config, self.cell.traffic
-        paired = traffic.get("pairing")
-        if paired:
-            paired = {"limits": (paired["min_insert"], paired["max_insert"]),
-                      "mode": paired["mode"],
-                      "insert": tuple(traffic["true_insert"])}
-        return self.genome, conf["mode"], paired, int(conf["qual_delta"])
-
-    def check(self) -> dict:
-        from reference import judge
-        t = time.perf_counter()
-        self.tally = judge.judge(*self.judge_args(), self.sample())
-        self.check_s = time.perf_counter() - t
-        return self.tally.numbers()
-
-    def judge_numbers(self) -> dict:
-        """The numbers compared, for the window just driven."""
-        from reference import judge
-        return judge.judge(*self.judge_args(), self.sample()).numbers()
-
-    def readings(self) -> dict:
-        """The numbers of the program and of the controls (the reference
-        in its place at lower precision) on the same sampled items."""
-        from reference import judge
-        items = self.sample()
-        out = {"program": judge.judge(*self.judge_args(), items).numbers()}
-        for tag, prec in (("control", judge.LOW),
-                          ("control_float32", judge.LOW_FLOAT)):
-            out[tag] = judge.control(*self.judge_args(), items,
-                                     prec).numbers()
-        return out
+    def shares(self) -> list:
+        """(pool, items its window completed) of each process that
+        mapped: this one."""
+        return [(self.pool, len(self.texts) * int(self.cell.traffic[
+            "batch_size"]))]
 
 
 def host_times() -> dict:
@@ -317,19 +399,24 @@ def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
     return all(numbers[k] <= limits[k] for k in limits), out
 
 
-def result_line(run: Run, correct: bool, checks: dict, peak: int) -> dict:
-    """The last line: the cell's end-to-end metrics, or with trace its
-    per-layer ones; metrics whose reader finds nothing are left out."""
-    import torch
+def read_metrics(cell, trace: bool, record: dict) -> dict:
+    """The cell's end-to-end metrics, or with trace its per-layer ones,
+    read from the record; metrics whose reader finds nothing are left
+    out."""
     metrics = {}
-    for m in (run.cell.per_layer if run.trace else run.cell.end_to_end):
-        v = cellmod.load_metric(m["name"], run.cell.root).read(run.record)
+    for m in (cell.per_layer if trace else cell.end_to_end):
+        v = cellmod.load_metric(m["name"], cell.root).read(record)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    on_card = run.device != "cpu"
-    device = {"platform": "gpu" if on_card else "cpu",
-              "kind": (torch.cuda.get_device_name(0) if on_card
-                       else "cpu"),
+    return metrics
+
+
+def result_line(run: BaseRun, correct: bool, checks: dict, peak: int) -> dict:
+    """The last line: the cell's metrics (`read_metrics`), its device,
+    and last the numbers compared."""
+    metrics = read_metrics(run.cell, run.trace, run.record)
+    device = {"platform": "gpu" if run.device != "cpu" else "cpu",
+              "kind": run.device_name(),
               "count": run.cell.chips, "memory_peak_bytes": int(peak)}
     if run.trace and "device" in run.record:
         device["busy_s"] = run.record["device"]["busy_s"]
@@ -381,37 +468,34 @@ def host_line(run: Run, threads: dict) -> dict:
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
              t_start: float, threads: dict) -> tuple[dict, dict]:
-    """Everything after the look for a card: returns the result line
-    and the numbers compared."""
-    import torch
-    run = Run(cell, seed, seconds, trace, device, t_start)
-    if device != "cpu":
-        torch.cuda.reset_peak_memory_stats()
-    run.prepare()
-    print("portbench " + json.dumps(host_line(run, threads)), flush=True)
-    run.drive()
-    peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
-    # the program's state goes before the reference runs
-    del run.mapper, run.idx
-    gc.unfreeze()
-    gc.collect()
-    if device != "cpu":
-        torch.cuda.empty_cache()
+    """Everything after the look for a card: the run (in this process on
+    one card; as ranks, `harness/ranks.py`, over several), the check,
+    and the result line and the numbers compared."""
+    if cell.chips > 1:
+        from harness import ranks
+        run = ranks.Launch(cell, seed, seconds, trace, device, t_start)
+    else:
+        run = Run(cell, seed, seconds, trace, device, t_start)
+    run.go(threads)
+    run.release()
     numbers = run.check()
     correct, checks = verdict(numbers, cell.limits)
-    ms = sorted(run.record["batch_ms"])
-    log(f"portbench window: {run.record['batches']} batches, "
-        f"{run.record['reads']} reads in {run.record['window_s']:.3f} s "
-        f"(batch ms min {ms[0]:.1f} median {ms[len(ms) // 2]:.1f} max "
-        f"{ms[-1]:.1f}; process CPU "
-        f"{run.host_window['process_cpu_s']:.2f} s, stolen "
-        f"{run.host_window['steal_s']:.2f} s); set-up {run.setup_s:.3f} s "
-        f"(warm-up {run.setup['warmup_s']:.3f} s); "
-        f"check {run.check_s:.2f} s of {run.tally.reads} reads, "
-        f"{run.tally.records} records")
+    for msg in run.summary():
+        log(msg)
     for msg in run.tally.notes:
         log(f"portbench note: {msg}")
-    return result_line(run, correct, checks, peak), checks
+    return result_line(run, correct, checks, run.peak), checks
+
+
+def cards_missing(chips: int) -> str | None:
+    """What is missing when the host has fewer CUDA devices than the
+    cell asks for."""
+    import torch
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < chips:
+        return (f"portbench: the cell needs {chips} CUDA device(s); "
+                f"found {found}")
+    return None
 
 
 def main(argv: list[str], t_start: float) -> int:
@@ -420,20 +504,34 @@ def main(argv: list[str], t_start: float) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a rank of a cell over several cards (harness/ranks.py starts them)
+    for flag, kind in (("--rank", int), ("--world", int),
+                       ("--coordinator", str), ("--run-dir", str),
+                       ("--launcher", int)):
+        ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     cell = cellmod.load_cell(args.workload)
     threads = pin_threads(int(cell.config["host_threads"]))
+    if args.rank is not None:
+        from harness import ranks
+        return ranks.rank_main(cell, args, t_start, threads)
     cache_dirs(cell.root)
-    import torch
-    torch.set_num_threads(int(cell.config["host_threads"]))
-    torch.set_num_interop_threads(int(cell.config["host_threads"]))
-    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if found < cell.chips:
-        log(f"portbench: the cell needs {cell.chips} CUDA device(s); "
-            f"found {found}")
-        return 2
-    line, checks = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                            "cuda", t_start, threads)
+    if cell.chips == 1:
+        # over several cards the launcher looks for them while its ranks
+        # start (harness/ranks.py)
+        import torch
+        torch.set_num_threads(int(cell.config["host_threads"]))
+        torch.set_num_interop_threads(int(cell.config["host_threads"]))
+        missing = cards_missing(cell.chips)
+        if missing:
+            log(missing)
+            return 2
+    try:
+        line, checks = run_cell(cell, args.seed, args.seconds,
+                                bool(args.trace), "cuda", t_start, threads)
+    except RankFailed as exc:
+        log(f"portbench: {exc}")
+        return 4
     bad = forbidden_modules()
     if bad:
         log(f"portbench: forbidden modules loaded: {bad}")

@@ -151,24 +151,39 @@ def make_pool(traffic: dict, genome: Genome, seed: int,
     each seed, or the same reads dealt into other batches, differ in work
     by more than runs of one seed do."""
     B = int(traffic["batch_size"])
-    n_b = int(traffic["pool_batches"])
-    if path is not None and os.path.exists(path):
-        with open(path, "rb") as fh:
-            items, truth = pickle.load(fh)
-    else:
-        gen = GENERATORS[traffic["generator"]]
-        holder = type("GenomeHolder", (), {"genome": genome.codes})()
-        items, truth = gen(holder, rng_for(int(traffic["pool_seed"])),
-                           n_b * B)
-        if path is not None:
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path + ".partial", "wb") as fh:
-                pickle.dump((items, truth), fh)
-            os.replace(path + ".partial", path)
-    order = (rng_for(seed).permutation(n_b)[:, None] * B
-             + np.arange(B)[None, :]).ravel()
+    items, truth = pool_items(traffic, genome, path)
+    order = batch_order(rng_for(seed), int(traffic["pool_batches"]), B)
     return Pool(kind="pairs" if traffic["generator"] == "pairs" else "reads",
                 items=[items[i] for i in order], truth=truth[order])
+
+
+def pool_items(traffic: dict, genome: Genome,
+               path: str | None = None) -> tuple[list, np.ndarray]:
+    """The traffic's pool in the generator's order, with each item's
+    true start: drawn from the traffic's own `pool_seed`, kept at `path`
+    on a checkout's first run and loaded after."""
+    if path is not None and os.path.exists(path):
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+    gen = GENERATORS[traffic["generator"]]
+    holder = type("GenomeHolder", (), {"genome": genome.codes})()
+    items, truth = gen(holder, rng_for(int(traffic["pool_seed"])),
+                       int(traffic["pool_batches"])
+                       * int(traffic["batch_size"]))
+    if path is not None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".partial", "wb") as fh:
+            pickle.dump((items, truth), fh)
+        os.replace(path + ".partial", path)
+    return items, truth
+
+
+def batch_order(rng: np.random.Generator, n_batches: int,
+                B: int) -> np.ndarray:
+    """Item indices of `n_batches` whole batches of `B`, the batches in
+    an order drawn from `rng`."""
+    return (rng.permutation(n_batches)[:, None] * B
+            + np.arange(B)[None, :]).ravel()
 
 
 def clear_partial(path: str) -> None:

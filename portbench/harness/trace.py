@@ -1,47 +1,14 @@
-"""The traced run: host stages as profiler ranges, the inputs of each
-kernel launch counted for the rooflines, and the reduction of the
-profiler's events to device busy time, time by device operation and
-idle gaps by host range.  Nothing here runs unless `--trace 1`."""
+"""The traced run: the inputs of each kernel launch counted for the
+rooflines, and the reduction of the profiler's events to device busy
+time, time by device operation and idle gaps by host range (the
+program's own `stage.<name>` ranges, which it opens while a profiler
+records, and the harness's `bench.*`).  Nothing here runs unless
+`--trace 1`."""
 
 from __future__ import annotations
 
 import re
 from contextlib import contextmanager
-
-
-class _Ranged:
-    """A stage timer of the program that is also a profiler range."""
-
-    def __init__(self, timer, label: str):
-        self.timer, self.label = timer, label
-
-    def __enter__(self):
-        import torch
-        self.rf = torch.profiler.record_function(self.label)
-        self.rf.__enter__()
-        return self.timer.__enter__()
-
-    def __exit__(self, *exc):
-        out = self.timer.__exit__(*exc)
-        self.rf.__exit__(*exc)
-        return out
-
-
-@contextmanager
-def stage_ranges():
-    """Every `Telemetry.stage` of the program opens a range
-    `stage.<name>` while it runs."""
-    from shrimp_tpu_torch.utils import telemetry
-    orig = telemetry.Telemetry.stage
-
-    def stage(self, name):
-        return _Ranged(orig(self, name), "stage." + name)
-
-    telemetry.Telemetry.stage = stage
-    try:
-        yield
-    finally:
-        telemetry.Telemetry.stage = orig
 
 
 @contextmanager

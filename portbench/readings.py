@@ -4,8 +4,9 @@ traffic, the numbers the benchmark compares, and the same numbers of the
 control (the reference in the program's place, at 8-bit saturating
 scores and float32 posteriors; and at float32 posteriors alone), and
 with `--faults` the numbers of the program with each fault of
-`harness/faults.py` planted under its timed path.  The benchmark's runs
-never run this.
+`harness/faults.py` planted under its timed path.  A cell over several
+cards runs whole for each seed (`harness/ranks.py`).  The benchmark's
+runs never run this.
 
     python3 portbench/readings.py --workload cs-unpaired \\
         --seconds 20 --seeds 11 12 13 --faults k7_crossover k7_gap
@@ -41,6 +42,8 @@ def main(argv) -> int:
         harness.log("portbench readings: no CUDA device")
         return 2
     torch.set_num_threads(int(cell.config["host_threads"]))
+    if cell.chips > 1:
+        return rank_readings(cell, args)
     run = harness.Run(cell, args.seeds[0], args.seconds, False, "cuda",
                       T_START)
     run.prepare_program()
@@ -59,6 +62,31 @@ def main(argv) -> int:
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "reads": reads, "reads_per_s": rate,
                           "check_s": check_s, **r}), flush=True)
+    return 0
+
+
+def rank_readings(cell, args) -> int:
+    """A cell over ranks: for each seed a whole run (the ranks' set-up
+    is theirs), then the numbers of the program and of the controls on
+    the window's sample."""
+    from harness import ranks
+    if args.faults:
+        harness.log("portbench readings: the planted faults are colour "
+                    "space's, on one card")
+        return 2
+    for seed in args.seeds:
+        launch = ranks.Launch(cell, seed, args.seconds, False, "cuda",
+                              time.perf_counter())
+        launch.prepare()
+        launch.run()
+        rec = launch.record
+        t = time.perf_counter()
+        r = launch.readings()
+        print(json.dumps({"workload": args.workload, "seed": seed,
+                          "reads": rec["reads"],
+                          "reads_per_s": rec["reads"] / rec["window_s"],
+                          "check_s": time.perf_counter() - t, **r}),
+              flush=True)
     return 0
 
 

@@ -29,7 +29,8 @@ def pytest_configure(config):
 
 
 def add_cell(root: str, name: str, base_config: str, traffic: dict,
-             limits: dict, genome: dict = TINY_GENOME) -> None:
+             limits: dict, genome: dict = TINY_GENOME,
+             chips: int = 1) -> None:
     """Add a cell the way a later change would: a configuration, a
     traffic mix and the limits of its checks as new files, and one new
     entry each in BENCHMARK.json."""
@@ -52,13 +53,21 @@ def add_cell(root: str, name: str, base_config: str, traffic: dict,
                            "file": cfile, "reduced": ["genome"],
                            "why": "a test cell"})
     man["workloads"].append({"name": name, "config": f"{name}-config",
-                             "traffic": name, "chips": 1, "why": "test"})
+                             "traffic": name, "chips": chips,
+                             "why": "test"})
     for m in man["per_layer"]:
         if "workloads" in m and (m["name"] != "pairing.ms_per_kread"
                                  or traffic["generator"] == "pairs"):
             m["workloads"].append(name)
     with open(man_path, "w") as fh:
         json.dump(man, fh)
+
+
+def rank_traffic() -> dict:
+    """Tiny letter-space reads dealt to two ranks, two batches each."""
+    t = tiny_traffic("reads")
+    t.update(deal_block=128, pool_batches=4)
+    return t
 
 
 def tiny_traffic(generator: str) -> dict:
@@ -76,8 +85,9 @@ def tiny_traffic(generator: str) -> dict:
 
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
-    """A checkout of the benchmark with three tiny cells (1 Mbp genome,
-    batches of 128 reads or 64 pairs) added as files plus entries."""
+    """A checkout of the benchmark with four tiny cells (1 Mbp genome,
+    batches of 128 reads or 64 pairs; one of them over two ranks) added
+    as files plus entries."""
     root = str(tmp_path_factory.mktemp("checkout"))
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
     shutil.copytree(BENCH, os.path.join(root, "portbench"),
@@ -92,4 +102,6 @@ def tiny_root(tmp_path_factory):
              lim(40.0, below_best_pct=3.0))
     add_cell(root, "tiny-pairs", "ls-illumina-100m", tiny_traffic("pairs"),
              lim(25.0))
+    add_cell(root, "tiny-ranks", "ls-illumina-100m", rank_traffic(),
+             lim(25.0), chips=2)
     return root
